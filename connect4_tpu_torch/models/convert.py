@@ -1,0 +1,136 @@
+"""Carry Flax weights into the port.
+
+``from_flax`` takes the JAX package's ``params`` and ``batch_stats`` trees
+(nested dicts of numpy arrays, in the layout of the Flax modules) and
+returns a ``Connect4Net`` holding the same numbers in PyTorch layouts:
+
+- conv kernels HWIO ``[kh, kw, Cin, F]`` -> OIHW ``[F, Cin, kh, kw]``;
+- Dense kernels ``[in, out]`` -> Linear weights ``[out, in]``. Rows stay in
+  Flax's (row, col, channel) flatten order, which the port's heads keep;
+- BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
+  ``running_mean``/``running_var``.
+
+``load_example_net`` reads the packaged gen-161 net from
+``connect4_tpu_torch/data/example_net_161.npz`` (written from the JAX
+checkpoint by ``scripts/export_example_net_npz.py``), so the port runs the
+trained net with no JAX or Orbax installed.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from connect4_tpu_torch.config import NetConfig
+from connect4_tpu_torch.models.net import Connect4Net
+from connect4_tpu_torch.utils import DeviceLike, resolve_device
+
+EXAMPLE_NET = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "data",
+    "example_net_161.npz",
+)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _conv(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    out = {"weight": _t(tree["kernel"]).permute(3, 2, 0, 1).contiguous()}
+    if "bias" in tree:
+        out["bias"] = _t(tree["bias"])
+    return out
+
+
+def _dense(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {"weight": _t(tree["kernel"]).T.contiguous(), "bias": _t(tree["bias"])}
+
+
+def _bn(params: Mapping[str, Any], stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {
+        "weight": _t(params["scale"]),
+        "bias": _t(params["bias"]),
+        "running_mean": _t(stats["mean"]),
+        "running_var": _t(stats["var"]),
+    }
+
+
+def _prefixed(prefix: str, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.{k}": v for k, v in tensors.items()}
+
+
+def from_flax(
+    config: NetConfig,
+    params: Mapping[str, Any],
+    batch_stats: Mapping[str, Any],
+    device: DeviceLike = None,
+) -> Connect4Net:
+    """A ``Connect4Net`` (eval mode) with the weights of the Flax
+    ``Connect4Net`` variables ``{'params': params, 'batch_stats': batch_stats}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    cb, cbs = params["_ConvBlock_0"], batch_stats["_ConvBlock_0"]
+    sd.update(_prefixed("conv_block.conv", _conv(cb["Conv_0"])))
+    sd.update(_prefixed("conv_block.bn", _bn(cb["BatchNorm_0"], cbs["BatchNorm_0"])))
+    for i in range(config.n_residuals):
+        rb, rbs = params[f"_ResidualBlock_{i}"], batch_stats[f"_ResidualBlock_{i}"]
+        for j in range(2):
+            sd.update(_prefixed(f"res_blocks.{i}.conv{j}", _conv(rb[f"Conv_{j}"])))
+            sd.update(_prefixed(
+                f"res_blocks.{i}.bn{j}", _bn(rb[f"BatchNorm_{j}"], rbs[f"BatchNorm_{j}"])
+            ))
+    vh, vhs = params["_ValueHead_0"], batch_stats["_ValueHead_0"]
+    sd.update(_prefixed("value_head.conv", _conv(vh["Conv_0"])))
+    sd.update(_prefixed("value_head.bn", _bn(vh["BatchNorm_0"], vhs["BatchNorm_0"])))
+    for i in range(config.n_fc_layers):
+        sd.update(_prefixed(f"value_head.fcs.{i}", _dense(vh[f"Dense_{i}"])))
+    sd.update(_prefixed("value_head.out", _dense(vh[f"Dense_{config.n_fc_layers}"])))
+    ph, phs = params["_PolicyHead_0"], batch_stats["_PolicyHead_0"]
+    sd.update(_prefixed("policy_head.conv", _conv(ph["Conv_0"])))
+    sd.update(_prefixed("policy_head.bn", _bn(ph["BatchNorm_0"], phs["BatchNorm_0"])))
+    sd.update(_prefixed("policy_head.fc", _dense(ph["Dense_0"])))
+
+    net = Connect4Net(config)
+    # strict=False only for the BatchNorm step counters, which Flax lacks
+    missing, unexpected = net.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError(f"from_flax: missing {missing}, unexpected {unexpected}")
+    return net.to(resolve_device(device)).eval()
+
+
+def unflatten(arrays: Mapping[str, np.ndarray], prefix: str) -> Dict[str, Any]:
+    """``{'params/a/b/kernel': x, ...}`` -> ``{'a': {'b': {'kernel': x}}}``
+    for the keys under ``prefix``."""
+    tree: Dict[str, Any] = {}
+    for key, value in arrays.items():
+        head, _, rest = key.partition("/")
+        if head != prefix:
+            continue
+        *path, leaf = rest.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
+def read_example_net(path: str = EXAMPLE_NET):
+    """``(net_config, generation, params, batch_stats)`` from the npz,
+    the Flax trees as nested dicts of numpy arrays."""
+    with np.load(path) as d:
+        arrays = {k: d[k] for k in d.files}
+    config = NetConfig(**json.loads(str(arrays.pop("net_config"))))
+    generation = int(arrays.pop("generation"))
+    return config, generation, unflatten(arrays, "params"), unflatten(arrays, "batch_stats")
+
+
+def load_example_net(path: str = EXAMPLE_NET, device: DeviceLike = None) -> Connect4Net:
+    """The packaged trained net (generation 161 by default) as a
+    ``Connect4Net``; its config is ``net.config``."""
+    config, _, params, batch_stats = read_example_net(path)
+    return from_flax(config, params, batch_stats, device=device)

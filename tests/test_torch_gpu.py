@@ -1,0 +1,68 @@
+"""Tests that need a CUDA card: the hand-written kernels against their
+plain PyTorch versions on the card. They skip where there is no card. This
+file imports neither JAX nor the JAX package:
+
+    python -m pytest tests/test_torch_gpu.py -q -m gpu
+"""
+
+import pytest
+import torch
+
+from connect4_tpu_torch.config import NetConfig
+from connect4_tpu_torch.env.core import initial_state, legal_moves, step, to_planes
+from connect4_tpu_torch.models import tower
+from connect4_tpu_torch.models.convert import load_example_net
+from connect4_tpu_torch.models.net import fold_bn_params, init_net
+
+SMALL = dict(filters=16, n_fc_layers=2, n_residuals=2, compute_dtype="bfloat16")
+
+
+def _positions(n, generator):
+    """Planes ``[n*42, 3]`` of legal positions after 0..35 random plies,
+    rows in (board, r, c) order: the inputs the search feeds the tower."""
+    state = initial_state((n,), device="cuda")
+    plies = torch.randint(0, 36, (n,), generator=generator, device="cuda")
+    for t in range(36):
+        legal = legal_moves(state)
+        weights = torch.where(legal.any(-1, keepdim=True), legal.float(), 1.0)
+        move = torch.multinomial(weights, 1, generator=generator)[:, 0]
+        state = step(state, move, t < plies)
+    return to_planes(state).permute(0, 2, 3, 1).reshape(n * 42, 3).contiguous()
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_card():
+    """The CUDA kernel against the plain version on the card, at the main
+    path's shapes, with the tolerances chip_smoke.py states: mean |diff| of
+    the bf16 tower output <= 2e-3, max |diff| of value and prior <= 2e-2
+    (the same rounding points; float32 sums in another order flip an
+    occasional bf16 rounding, which then propagates)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    nets = {
+        "gen161": load_example_net(device="cuda"),
+        "small": init_net(NetConfig(**SMALL), torch.Generator().manual_seed(0), device="cuda"),
+    }
+    errors = {}
+    for name, net in nets.items():
+        packed = tower.pack_weights(net.config, fold_bn_params(net))
+        for b in (4096, 261, 1):
+            x2d = _positions(b, g)
+            with torch.no_grad():
+                before = tower.run_tower.launches
+                tk = tower.run_tower(packed, x2d)
+                assert tower.run_tower.launches == before + 1
+                tp = tower.tower_plain(packed, x2d)
+                vk, pk = tower.heads(packed, tk)
+                vp, pp = tower.heads(packed, tp)
+            torch.cuda.synchronize()
+            assert torch.isfinite(tk.float()).all(), (name, b)
+            errors[name, b] = (
+                (tk.float() - tp.float()).abs().mean().item(),
+                (vk - vp).abs().max().item(),
+                (pk - pp).abs().max().item(),
+            )
+    bad = {k: e for k, e in errors.items() if e[0] > 2e-3 or max(e[1:]) > 2e-2}
+    assert not bad, f"(tower mean, value max, prior max) over tolerance: {bad}; all: {errors}"
