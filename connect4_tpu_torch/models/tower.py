@@ -12,11 +12,31 @@ tensor, and takes the plain version ``tower_plain`` only for a CPU tensor.
 It never falls back: a CUDA input that the kernel does not take raises.
 ``run_tower.launches`` counts kernel launches.
 
+The kernel (see the header of ``csrc/tower.cu``) keeps a tile of 3 boards
+resident in shared memory across all layers and runs every conv as 9
+shifted products on the tensor cores with ``wgmma``: the activations are
+the register operand, filled by ``ldmatrix`` from addresses that carry the
+tap's shift and mask; a tap's weights are the shared-memory operand,
+streamed by asynchronous bulk copies through a ring of ``mbarrier``s.
+``pack_weights`` therefore also lays the weights out as the exact
+shared-memory images the kernel's matrix descriptors read (``conv1_img``,
+``res_img``), and ``tile_plan`` mirrors the launcher's choice of tile.
+
 Numerics (both versions, as in the Pallas kernel): inputs rounded to bf16,
 bf16 weights, float32 accumulation, float32 bias add, LeakyReLU, a round
-to bf16 at every layer boundary, the residual add in float32. The heads
-take the bf16 tower output through float32 products and round to bf16
-where the Pallas epilogue does; tanh and softmax run in float32.
+to bf16 at every layer boundary, the residual add in float32. Both sum a
+conv in the same order: ``CHAIN`` says how many products chain inside the
+tensor core before an ordinary float32 add (as shipped, the whole layer).
+Inside a chain the tensor core does not round to nearest, so ``tower_plain``
+comes in two forms. ``tensor_core=False`` (the default, and what
+``run_tower`` computes on the CPU) is the float32 matrix product rounded to
+nearest, as tensor code is naturally written: the reference that owes
+nothing to a model of the hardware. ``tensor_core=True`` emulates the
+H100's accumulate (``_tensor_core_step``) and reproduces the kernel bit for
+bit; it is slow (every product is formed on its own) and exists to hold the
+kernel against. The heads take the bf16
+tower output through float32 products and round to bf16 where the Pallas
+epilogue does; tanh and softmax run in float32.
 """
 
 from __future__ import annotations
@@ -36,6 +56,13 @@ from connect4_tpu_torch.types import AREA, HEIGHT, WIDTH
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "tower.cu")
 KERNEL_FILTERS = (16, 32, 64)  # widths the kernel is instantiated for
 MAX_CHANNELS = 4
+# How many terms of a residual conv's 9*Cin-deep sum form one product before
+# a float32 add: "step" 16 (one tensor-core step), "tap" Cin (one tap),
+# "layer" all. The kernel ships CHAIN; the others exist (at F=64) to be
+# measured against it. The order matches csrc/tower.cu's kChain* constants.
+CHAINS = ("step", "tap", "layer")
+CHAIN = "layer"
+TILE_BOARDS = 3  # boards per block: two 64-row tiles, one per warpgroup
 
 _BF16 = torch.bfloat16
 
@@ -43,9 +70,10 @@ _BF16 = torch.bfloat16
 def pack_weights(config: NetConfig, folded: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Kernel-shaped tensors from an ``InferenceNet`` state dict, on its
     device. 3x3 kernels become im2col matrices ``[9*Cin, F]`` with rows in
-    (dr, dc, cin) order, as ``pack_weights`` of the Pallas tower makes them;
-    ``res_wt`` holds the residual convs' matrices transposed, ``[2n, F, 9F]``,
-    the layout the CUDA kernel reads. Biases are rounded to bf16, as there."""
+    (dr, dc, cin) order, as ``pack_weights`` of the Pallas tower makes them.
+    ``conv1_img`` and ``res_img`` hold the same values as the shared-memory
+    images the CUDA kernel copies in and multiplies from (``smem_image``).
+    Biases are rounded to bf16, as there."""
 
     def im2col(w):  # OIHW [F, Cin, 3, 3] -> [9*Cin, F]
         return w.detach().permute(2, 3, 1, 0).reshape(-1, w.shape[0]).to(_BF16)
@@ -64,11 +92,15 @@ def pack_weights(config: NetConfig, folded: Dict[str, torch.Tensor]) -> Dict[str
     def dense(name):  # Linear [out, in] -> Dense kernel [in, out]
         return folded[name].detach().T.contiguous().to(_BF16)
 
+    conv1_w = im2col(folded["conv0.weight"]).contiguous()
+    depth0 = conv1_w.shape[0]
+    conv1_pad = F.pad(conv1_w, (0, 0, 0, -depth0 % 16))  # depth up to a multiple of 16
     return {
-        "conv1_w": im2col(folded["conv0.weight"]).contiguous(),  # [9*channels, F]
+        "conv1_w": conv1_w,  # [9*channels, F]
+        "conv1_img": smem_image(conv1_pad),  # [16*ceil(9*channels/16) * F]
         "conv1_b": bf("conv0.bias"),
         "res_w": res_w.contiguous(),  # [2n, 9F, F]
-        "res_wt": res_w.transpose(1, 2).contiguous(),  # [2n, F, 9F]
+        "res_img": smem_image(res_w.unflatten(1, (9, f))),  # [2n, 9, F*F], one tap each
         "res_b": res_b.contiguous(),  # [2n, F]
         "vh_conv_w": folded["vh_conv.weight"].detach().reshape(1, f).T.contiguous().to(_BF16),
         "vh_conv_b": bf("vh_conv.bias"),
@@ -83,50 +115,133 @@ def pack_weights(config: NetConfig, folded: Dict[str, torch.Tensor]) -> Dict[str
     }
 
 
+def smem_image(w: torch.Tensor) -> torch.Tensor:
+    """``[..., K, N]`` matrices (K, N multiples of 8) -> ``[..., K*N]``, each
+    in the order the kernel's ``wgmma`` descriptor reads a K-major B operand
+    from shared memory without swizzle: 8x8 core matrices of 128 contiguous
+    bytes, n down a core matrix and k along its rows; core matrices adjacent
+    in n follow each other, those adjacent in k lie N/8 core matrices apart.
+    Element (k, n) lands at ``((k//8 * N//8 + n//8) * 8 + n%8) * 8 + k%8``."""
+    k, n = w.shape[-2:]
+    v = w.unflatten(-2, (k // 8, 8)).unflatten(-1, (n // 8, 8))  # [..., kc, e, ng, r]
+    return v.permute(*range(v.dim() - 4), -4, -2, -1, -3).flatten(-4).contiguous()
+
+
+def smem_image_inverse(img: torch.Tensor, n: int) -> torch.Tensor:
+    """``smem_image`` undone: ``[..., K*N]`` -> ``[..., K, N]``."""
+    k = img.shape[-1] // n
+    v = img.unflatten(-1, (k // 8, n // 8, 8, 8))  # [..., kc, ng, r, e]
+    return v.permute(*range(v.dim() - 4), -4, -1, -3, -2).flatten(-4, -3).flatten(-2).contiguous()
+
+
+def tile_plan(n_boards: int) -> Tuple[int, int]:
+    """``(boards per block, blocks)`` as the kernel's launcher takes them:
+    3 boards, two 64-row tiles, one per warpgroup, at every batch, so that
+    small batches spread over the card."""
+    return TILE_BOARDS, -(-n_boards // TILE_BOARDS)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 
 
-def _conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _round_toward_zero(t: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32, truncating as the tensor core does where it
+    writes a sum (``Tensor.float`` rounds to nearest)."""
+    f = t.float()
+    return torch.where(f.double().abs() > t.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _exponent(t: torch.Tensor) -> torch.Tensor:
+    """floor(log2 |t|) of a float64 tensor; far below every real exponent
+    where t is zero."""
+    _, e = torch.frexp(t)
+    return torch.where(t == 0, torch.full_like(e, -1000), e - 1)
+
+
+_STEP_ROWS = 1 << 15  # rows a tensor-core step is emulated on at a time (memory)
+
+
+def _tensor_core_step(a: torch.Tensor, w: torch.Tensor, acc) -> torch.Tensor:
+    """``acc + a @ w`` for bf16-valued ``a [R, k<=16]``, ``w [k, N]`` and a
+    float32 ``acc [R, N]`` (or None for zero), as one H100 ``wgmma`` k16
+    step computes it, bit for bit on every input tried (gen-161, legal
+    positions, all three chain lengths: ``scripts/check_tower_gpu.py``).
+
+    The k products are exact. Each has the exponent of its factors'
+    exponents added (not that of the product itself, which may be one
+    more). Products and accumulator are aligned to the largest exponent
+    among them and cut, toward zero, two bits below the float32 unit of
+    that exponent; the cut addends are summed exactly and the sum is cut
+    toward zero to float32."""
+    out = []
+    w64 = w.double()
+    ew = _exponent(w64)
+    for r0 in range(0, a.shape[0], _STEP_ROWS):
+        a64 = a[r0:r0 + _STEP_ROWS].double()
+        e = (_exponent(a64)[:, :, None] + ew[None]).amax(1)  # [R, N]
+        c64 = None if acc is None else acc[r0:r0 + _STEP_ROWS].double()
+        if c64 is not None:
+            e = torch.maximum(e, _exponent(c64))
+        unit = torch.ldexp(torch.ones_like(c64 if c64 is not None else e, dtype=torch.float64),
+                           e.clamp_min(-100) - 25)
+        s = torch.trunc(a64[:, :, None] * w64[None] / unit[:, None, :]).sum(1)
+        if c64 is not None:
+            s = s + torch.trunc(c64 / unit)
+        out.append(_round_toward_zero(s * unit))
+    return torch.cat(out)
+
+
+def _conv3x3_plain(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, chain: str, tensor_core: bool
+) -> torch.Tensor:
     """One folded conv + bias on bf16 boards ``[B, 6, 7, Cin]`` -> float32
     ``[B, 6, 7, F]``: im2col over the zero-padded board, bf16 values
-    multiplied in float32.
+    multiplied and summed in the CUDA kernel's order.
 
-    The sum runs in the CUDA kernel's order: where the contraction depth
-    9*Cin is a multiple of 16 (the residual convs) each 16-deep slice is
-    its own product and the slices are added in turn, as the kernel's
-    tensor-core steps are; otherwise (the input conv) the terms are added
-    one by one, as the kernel's scalar loop adds them. The two versions
-    then differ only inside a 16-term product. Any other order flips the
-    bf16 rounding of some outputs of every layer, and the flips compound
-    through the tower."""
+    A residual conv (Cin a multiple of 16) is cut into chains of ``chain``
+    terms (``"step"`` 16, ``"tap"`` Cin, ``"layer"`` all of them); the
+    chains' sums are added in turn with ordinary float32 adds, as the kernel
+    adds them. The input conv is one chain. A chain is one float32 matrix
+    product rounded to nearest, or with ``tensor_core`` the tensor core's
+    16-term steps emulated one after the other (``_tensor_core_step``)."""
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
     patches = torch.cat(
         [xp[:, dr:dr + HEIGHT, dc:dc + WIDTH, :] for dr in range(3) for dc in range(3)],
         dim=-1,
     )  # [B, 6, 7, 9*Cin], (dr, dc, cin) order
+    board_shape = patches.shape[:-1]
+    patches = patches.flatten(0, -2)
     depth = patches.shape[-1]
-    chunk = 16 if depth % 16 == 0 else 1
-    parts = torch.einsum(
-        "...ks,ksf->...kf",
-        patches.unflatten(-1, (depth // chunk, chunk)),
-        w.float().unflatten(0, (depth // chunk, chunk)),
-    )  # [B, 6, 7, depth/chunk, F]
-    acc = parts[..., 0, :]
-    for i in range(1, depth // chunk):
-        acc = acc + parts[..., i, :]
-    return acc + b.float()
+    cin = depth // 9
+    chunk = {"step": 16, "tap": cin, "layer": depth}[chain] if cin % 16 == 0 else depth
+    wf = w.float()
+    acc = None
+    for c0 in range(0, depth, chunk):
+        c1 = min(c0 + chunk, depth)
+        if tensor_core:
+            part = None
+            for k in range(c0, c1, 16):
+                part = _tensor_core_step(patches[:, k:min(k + 16, c1)], wf[k:min(k + 16, c1)], part)
+        else:
+            part = patches[:, c0:c1] @ wf[c0:c1]
+        acc = part if acc is None else acc + part
+    return (acc + b.float()).unflatten(0, board_shape)
 
 
-def tower_plain(packed: Dict[str, torch.Tensor], x2d: torch.Tensor) -> torch.Tensor:
-    """The tower in plain tensor code: ``[B*42, C]`` -> ``[B*42, F]`` bf16."""
+def tower_plain(
+    packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain: str = CHAIN, tensor_core: bool = False
+) -> torch.Tensor:
+    """The tower in plain tensor code: ``[B*42, C]`` -> ``[B*42, F]`` bf16,
+    summed in the kernel's order at chain length ``chain``; a chain's inner
+    sum rounded to nearest, or as the tensor core computes it."""
     b = x2d.shape[0] // AREA
     x = x2d.to(_BF16).reshape(b, HEIGHT, WIDTH, -1)
-    x = lrelu(_conv3x3_plain(x, packed["conv1_w"], packed["conv1_b"])).to(_BF16)
+    x = lrelu(_conv3x3_plain(x, packed["conv1_w"], packed["conv1_b"], chain, tensor_core)).to(_BF16)
     res_w, res_b = packed["res_w"], packed["res_b"]
     for i in range(res_w.shape[0] // 2):
-        y = lrelu(_conv3x3_plain(x, res_w[2 * i], res_b[2 * i])).to(_BF16)
-        y2 = _conv3x3_plain(y, res_w[2 * i + 1], res_b[2 * i + 1])
+        y = lrelu(_conv3x3_plain(x, res_w[2 * i], res_b[2 * i], chain, tensor_core)).to(_BF16)
+        y2 = _conv3x3_plain(y, res_w[2 * i + 1], res_b[2 * i + 1], chain, tensor_core)
         x = lrelu(y2 + x.float()).to(_BF16)
     return x.reshape(b * AREA, -1)
 
@@ -137,9 +252,10 @@ def tower_plain(packed: Dict[str, torch.Tensor], x2d: torch.Tensor) -> torch.Ten
 
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
-    fn = lib.c4_tower_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.c4_tower_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.c4_tower_forward_chain.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    for fn in (lib.c4_tower_forward, lib.c4_tower_forward_chain):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -152,10 +268,10 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, ...
         )
 
 
-def _tower_cuda(packed: Dict[str, torch.Tensor], x2d: torch.Tensor) -> torch.Tensor:
+def _tower_cuda(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) -> torch.Tensor:
     rows, cin = x2d.shape
     f = packed["conv1_w"].shape[1]
-    n_layers = packed["res_wt"].shape[0]
+    n_layers = packed["res_img"].shape[0]
     if rows % AREA or f not in KERNEL_FILTERS or not 1 <= cin <= MAX_CHANNELS:
         raise ValueError(
             f"tower kernel takes [B*42, C<= {MAX_CHANNELS}] rows and F in "
@@ -163,33 +279,38 @@ def _tower_cuda(packed: Dict[str, torch.Tensor], x2d: torch.Tensor) -> torch.Ten
         )
     dev = x2d.device
     _check(x2d, "x", torch.float32, (rows, cin), dev)
-    _check(packed["conv1_w"], "conv1_w", _BF16, (9 * cin, f), dev)
+    _check(packed["conv1_img"], "conv1_img", _BF16, (-(-9 * cin // 16) * 16 * f,), dev)
     _check(packed["conv1_b"], "conv1_b", _BF16, (f,), dev)
-    _check(packed["res_wt"], "res_wt", _BF16, (n_layers, f, 9 * f), dev)
+    _check(packed["res_img"], "res_img", _BF16, (n_layers, 9, f * f), dev)
     _check(packed["res_b"], "res_b", _BF16, (n_layers, f), dev)
     out = torch.empty((rows, f), dtype=_BF16, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.c4_tower_forward(
-            x2d.data_ptr(), packed["conv1_w"].data_ptr(), packed["conv1_b"].data_ptr(),
-            packed["res_wt"].data_ptr(), packed["res_b"].data_ptr(), out.data_ptr(),
-            rows // AREA, cin, f, n_layers, stream,
+        args = (
+            x2d.data_ptr(), packed["conv1_img"].data_ptr(), packed["conv1_b"].data_ptr(),
+            packed["res_img"].data_ptr(), packed["res_b"].data_ptr(), out.data_ptr(),
+            rows // AREA, cin, f, n_layers,
         )
+        if chain is None:
+            err = lib.c4_tower_forward(*args, stream)
+        else:
+            err = lib.c4_tower_forward_chain(*args, CHAINS.index(chain), stream)
     if err != 0:
-        raise RuntimeError(f"tower kernel launch failed with cudaError {err}")
+        raise RuntimeError(f"tower kernel launch failed with cudaError {err} (F {f}, chain {chain})")
     run_tower.launches += 1
     return out
 
 
-def run_tower(packed: Dict[str, torch.Tensor], x2d: torch.Tensor) -> torch.Tensor:
+def run_tower(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) -> torch.Tensor:
     """``[B*42, C]`` float32 rows of ``(board, r, c)`` -> ``[B*42, F]`` bf16
     tower output. The CUDA kernel for a CUDA tensor; the plain version for
-    a CPU tensor; anything else raises."""
+    a CPU tensor; anything else raises. ``chain`` (one of ``CHAINS``)
+    overrides the shipped chain length, for measurements."""
     if x2d.device.type == "cuda":
-        return _tower_cuda(packed, x2d)
+        return _tower_cuda(packed, x2d, chain)
     if x2d.device.type == "cpu":
-        return tower_plain(packed, x2d)
+        return tower_plain(packed, x2d, chain or CHAIN)
     raise ValueError(f"tower: no implementation for device {x2d.device}")
 
 
