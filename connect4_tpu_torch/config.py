@@ -1,12 +1,14 @@
-"""Configuration of the PyTorch port: copies of ``NetConfig``,
-``ModelConfig`` and ``MCTSConfig`` from ``connect4_tpu.config``, kept here
-so the port never imports the JAX package. Field names and defaults are
-the same, so a config moves between the two packages with
-``dataclasses.asdict``."""
+"""Configuration of the PyTorch port: copies of the dataclasses of
+``connect4_tpu.config``, kept here so the port never imports the JAX
+package. Field names and defaults are the same, so a config moves between
+the two packages with ``dataclasses.asdict``; only the default directories
+of ``StorageConfig`` are the port's own. Like the JAX package, a user config
+is a Python file defining ``config`` (see ``connect4_tpu_torch.cli``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 
@@ -77,3 +79,89 @@ class MCTSConfig:
         # worst case is K-fold smaller.
         iterations = -(-self.simulations // max(self.parallel_sims, 1))
         return 1 + 7 * iterations
+
+
+@dataclasses.dataclass
+class StorageConfig:
+    """Filesystem layout. ``save_dir/<gen>/`` holds per-generation
+    artifacts; ``data_dir`` holds the 7-ply and 8-ply benchmark sets (the
+    packaged copies by default)."""
+
+    save_dir: str = dataclasses.field(
+        default_factory=lambda: os.path.expanduser("~/connect4_tpu_torch_runs")
+    )
+    data_dir: str = dataclasses.field(
+        default_factory=lambda: os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "data"
+        )
+    )
+
+
+@dataclasses.dataclass
+class AlphaZeroConfig:
+    """Top-level training configuration. ``selfplay_batch`` is the number
+    of games stepped in lockstep on the device."""
+
+    model_config: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    storage_config: StorageConfig = dataclasses.field(default_factory=StorageConfig)
+    simulations: int = 800
+    pb_c_base: float = 19652.0
+    pb_c_init: float = 1.25
+    root_dirichlet_alpha: float = 0.3
+    root_exploration_fraction: float = 0.25
+    num_sampling_moves: int = 6
+    n_eval: int = 1  # run a gating match every n_eval generations
+    # Start-position depth of the in-loop gating match: all 49 two-ply
+    # starts, both colours (98 games). Set to 1 for the 14-game protocol.
+    gating_plies: int = 2
+    n_training_games: int = 1200
+    selfplay_batch: int = 1200  # games in flight on the device per wave
+    max_nodes: Optional[int] = None
+    parallel_sims: int = 1  # see MCTSConfig.parallel_sims
+    # Split each search into calls of this many simulations (None = the
+    # whole search in one call); must divide ``simulations``.
+    sims_per_call: Optional[int] = None
+    seed: int = 0
+    # Device mesh axis sizes of the JAX package. The port runs on one
+    # device: the field is kept so that configs carry over, and a value
+    # other than None is refused (see require_single_device).
+    mesh_shape: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        self.require_single_device()
+
+    def require_single_device(self) -> None:
+        if self.mesh_shape is not None:
+            raise NotImplementedError(
+                f"mesh_shape={self.mesh_shape!r}: the PyTorch port runs on one "
+                "device; leave mesh_shape=None (multi-device training is only "
+                "in the JAX package so far)"
+            )
+
+    def search_config(self, training: bool) -> MCTSConfig:
+        """Exploration on for self-play, off for evaluation matches."""
+        config = MCTSConfig(
+            simulations=self.simulations,
+            pb_c_base=self.pb_c_base,
+            pb_c_init=self.pb_c_init,
+            max_nodes=self.max_nodes,
+            parallel_sims=self.parallel_sims,
+        )
+        if training:
+            config.root_dirichlet_alpha = self.root_dirichlet_alpha
+            config.root_exploration_fraction = self.root_exploration_fraction
+            config.num_sampling_moves = self.num_sampling_moves
+        return config
+
+
+def load_config_file(path: str) -> AlphaZeroConfig:
+    """Execute a user config file that defines ``config``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("user_config", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    config = module.config
+    if not isinstance(config, AlphaZeroConfig):
+        raise TypeError(f"{path} must define `config: AlphaZeroConfig`")
+    return config

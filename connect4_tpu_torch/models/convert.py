@@ -10,6 +10,10 @@ returns a ``Connect4Net`` holding the same numbers in PyTorch layouts:
 - BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
   ``running_mean``/``running_var``.
 
+``train_state_from_flax`` carries a whole mid-training learner state over
+(parameters, running statistics, the SGD momentum trace and the learning
+rate), so that both learners can take their next steps from the same point.
+
 ``load_example_net`` reads the packaged gen-161 net from
 ``connect4_tpu_torch/data/example_net_161.npz`` (written from the JAX
 checkpoint by ``scripts/export_example_net_npz.py``), so the port runs the
@@ -25,7 +29,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from connect4_tpu_torch.config import NetConfig
+from connect4_tpu_torch.config import ModelConfig, NetConfig
 from connect4_tpu_torch.models.net import Connect4Net
 from connect4_tpu_torch.utils import DeviceLike, resolve_device
 
@@ -101,6 +105,30 @@ def from_flax(
     if missing or unexpected:
         raise ValueError(f"from_flax: missing {missing}, unexpected {unexpected}")
     return net.to(resolve_device(device)).eval()
+
+
+def train_state_from_flax(
+    config: ModelConfig,
+    params: Mapping[str, Any],
+    batch_stats: Mapping[str, Any],
+    momentum: Mapping[str, Any],
+    learning_rate: float,
+    device: DeviceLike = None,
+):
+    """The port's ``TrainState`` (net and SGD optimiser) from the leaves of
+    a JAX ``TrainState`` as numpy arrays: ``params`` and ``batch_stats`` as
+    for ``from_flax``, ``momentum`` the optimiser's momentum trace (a tree
+    shaped like ``params``) and the injected learning rate."""
+    from connect4_tpu_torch.training.learner import TrainState, make_optimizer, set_learning_rate
+
+    net = from_flax(config.net_config, params, batch_stats, device=device)
+    optimizer = set_learning_rate(make_optimizer(config, net), float(learning_rate))
+    # the trace has the layout of the params, so the same conversion puts
+    # each momentum buffer into its parameter's PyTorch layout
+    trace = from_flax(config.net_config, momentum, batch_stats, device=device)
+    for p, m in zip(net.parameters(), trace.parameters()):
+        optimizer.state[p]["momentum_buffer"] = m.detach().clone()
+    return TrainState(net, optimizer)
 
 
 def unflatten(arrays: Mapping[str, np.ndarray], prefix: str) -> Dict[str, Any]:

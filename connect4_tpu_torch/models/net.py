@@ -1,10 +1,11 @@
-"""Value+policy network in PyTorch, eval-mode forward only.
+"""Value+policy network in PyTorch.
 
 The counterpart of ``connect4_tpu.models.net``: a conv+BN tower with
 residual blocks over the 3x(6x7) input planes, a value head mapping to
 [0, 1] via tanh, and a policy head emitting a softmax over the 7 columns.
 The public forward takes NHWC ``[N, 6, 7, channels]`` planes, as the JAX
-package does; inside, the tower runs NCHW.
+package does; inside, the tower runs NCHW, and ``nchw=True`` hands it the
+stored ``[N, channels, 6, 7]`` planes as they are.
 
 Parity details kept from the JAX net:
 
@@ -17,8 +18,12 @@ Parity details kept from the JAX net:
   while BatchNorm, tanh and softmax run in float32 (Flax's ``dtype``
   promotion).
 
-Training (batch statistics, the learner's backward) is not part of this
-module yet; BatchNorm always uses its running statistics.
+- In training mode (``net.train()``; ``init_net`` and ``from_flax`` return
+  ``net.eval()``, and the learner switches explicitly) BatchNorm normalises
+  with the batch's mean and biased variance and moves its running
+  statistics as Flax's ``BatchNorm(momentum=0.9)`` does:
+  ``0.9 * running + 0.1 * batch``, with the *biased* batch variance
+  (``nn.BatchNorm2d`` would store the unbiased one).
 """
 
 from __future__ import annotations
@@ -55,11 +60,26 @@ def _dense(x: torch.Tensor, fc: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), fc.weight.to(dtype), fc.bias.to(dtype))
 
 
+BN_MOMENTUM = 0.9  # Flax's convention: the weight of the old running value
+
+
 def _bn(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    return F.batch_norm(
-        x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
-        training=False, eps=BN_EPS,
-    )
+    """BatchNorm in float32 on the conv's output (bf16 or float32)."""
+    x = x.float()
+    if not bn.training:
+        return F.batch_norm(
+            x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+            training=False, eps=BN_EPS,
+        )
+    # With momentum 1 the fused op leaves the batch mean and the unbiased
+    # batch variance in the two scratch buffers, at no extra pass over x.
+    mean, var = torch.zeros_like(bn.running_mean), torch.zeros_like(bn.running_var)
+    y = F.batch_norm(x, mean, var, bn.weight, bn.bias, training=True, momentum=1.0, eps=BN_EPS)
+    n = x.numel() // x.shape[1]
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=(1.0 - BN_MOMENTUM) * (n - 1) / n)
+    return y
 
 
 def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -120,8 +140,9 @@ class _PolicyHead(nn.Module):
 
 
 class Connect4Net(nn.Module):
-    """Value+policy tower. Input: NHWC ``[N, 6, 7, channels]`` float planes.
-    Returns ``(value [N] in [0,1], prior [N,7] summing to 1)``."""
+    """Value+policy tower. Input: NHWC ``[N, 6, 7, channels]`` float planes
+    (or NCHW ``[N, channels, 6, 7]`` with ``nchw=True``). Returns
+    ``(value [N] in [0,1], prior [N,7] summing to 1)``."""
 
     def __init__(self, config: NetConfig):
         super().__init__()
@@ -134,9 +155,9 @@ class Connect4Net(nn.Module):
         self.value_head = _ValueHead(f, config.n_fc_layers)
         self.policy_head = _PolicyHead(f)
 
-    def forward(self, nhwc: torch.Tensor):
+    def forward(self, planes: torch.Tensor, nchw: bool = False):
         dtype = compute_dtype(self.config)
-        x = self.conv_block(nhwc.permute(0, 3, 1, 2), dtype)
+        x = self.conv_block(planes if nchw else planes.permute(0, 3, 1, 2), dtype)
         for blk in self.res_blocks:
             x = blk(x, dtype)
         return self.value_head(x, dtype), self.policy_head(x, dtype)

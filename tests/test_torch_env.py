@@ -21,6 +21,11 @@ from connect4_tpu_torch.env.convert import stack_boards, unstack_state
 from connect4_tpu_torch.env.host_board import HostBoard
 from connect4_tpu_torch.types import ONGOING, WIDTH, Result
 
+# The suite runs several workers at once, each with JAX's threads beside
+# PyTorch's: one intra-op thread a worker keeps these small nets from
+# contending for the cores (the results do not depend on it).
+torch.set_num_threads(1)
+
 _jstep = jax.jit(jcore.step)
 _jplanes = jax.jit(jcore.to_planes)
 _jlegal = jax.jit(jcore.legal_moves)
@@ -140,16 +145,18 @@ def test_stack_unstack_round_trip():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, and chip_smoke.py, imports in a process
-    where JAX, Flax and the JAX package cannot be imported."""
+    """Every module of the port, chip_smoke.py and bench_gpu.py import in
+    a process where JAX, Flax, optax, Orbax, the JAX package, pandas and
+    matplotlib cannot be imported."""
     code = (
         "import sys, importlib, pkgutil\n"
-        "for m in ('jax', 'flax', 'optax', 'orbax', 'connect4_tpu'):\n"
+        "for m in ('jax', 'flax', 'optax', 'orbax', 'connect4_tpu', 'pandas', 'matplotlib'):\n"
         "    sys.modules[m] = None\n"
         "import connect4_tpu_torch\n"
         "for m in pkgutil.walk_packages(connect4_tpu_torch.__path__, 'connect4_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "import bench_gpu\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)

@@ -67,3 +67,42 @@ def test_kernel_matches_plain_on_card():
             )
     bad = {k: e for k, e in errors.items() if e[0] > 2e-3 or max(e[1:]) > 2e-2}
     assert not bad, f"(tower mean, value max, prior max) over tolerance: {bad}; all: {errors}"
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu():
+    """Three SGD steps (uint8 NCHW batches of 256 legal positions, made-up
+    targets) on the card against the same steps on the CPU from the same
+    weights. float32 means IEEE float32 on the card (``resolve_device``
+    turns TF32 off): losses and every parameter and running statistic
+    within 1e-4. bf16: losses within 5e-2, state within 5e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import copy
+
+    from connect4_tpu_torch.config import ModelConfig
+    from connect4_tpu_torch.training.learner import init_train_state, make_optimizer, make_train_step
+    from connect4_tpu_torch.utils import resolve_device
+
+    dev = resolve_device("cuda")
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batches = []
+    for _ in range(3):
+        planes = _positions(256, g).reshape(256, 6, 7, 3).permute(0, 3, 1, 2).to(torch.uint8).contiguous()
+        values = torch.randint(0, 3, (256,), generator=g, device="cuda").float() / 2
+        priors = torch.softmax(torch.randn((256, 7), generator=g, device="cuda"), -1)
+        batches.append((planes, values, priors))
+    for dtype, tol_loss, tol_state in (("float32", 1e-4, 1e-4), ("bfloat16", 5e-2, 5e-3)):
+        config = ModelConfig(net_config=NetConfig(**{**SMALL, "compute_dtype": dtype}))
+        on_cpu = init_train_state(config, torch.Generator().manual_seed(3), "cpu")
+        net = copy.deepcopy(on_cpu.net).to(dev)
+        on_card = type(on_cpu)(net, make_optimizer(config, net))
+        steps = [make_train_step(s.net, s.optimizer) for s in (on_cpu, on_card)]
+        for batch in batches:
+            a = float(steps[0](*(t.cpu() for t in batch))["loss"])
+            b = float(steps[1](*batch)["loss"])
+            assert abs(a - b) <= tol_loss, (dtype, a, b)
+        for (k, v), w in zip(on_cpu.net.state_dict().items(), on_card.net.state_dict().values()):
+            if not k.endswith("num_batches_tracked"):
+                assert (v - w.cpu()).abs().max().item() <= tol_state, (dtype, k)

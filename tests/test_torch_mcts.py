@@ -24,6 +24,11 @@ from connect4_tpu_torch.env.host_board import HostBoard
 from connect4_tpu_torch.eval.evaluators import centre_evaluator_batched
 from connect4_tpu_torch.mcts import batched as tb
 
+# The suite runs several workers at once, each with JAX's threads beside
+# PyTorch's: one intra-op thread a worker keeps these small nets from
+# contending for the cores (the results do not depend on it).
+torch.set_num_threads(1)
+
 TACTIC_MOVES = [[1, 1, 2, 2, 3, 3], [6, 0, 6, 1, 5, 2], [5, 0, 5, 1, 5, 2], [], [0, 6, 1, 6, 0, 6]]
 POSITIONS = [[3], [3, 3], [2, 4, 3], [0, 1, 0, 1, 0], [3, 3, 4, 2, 5, 1], [6, 6, 5, 5, 4]]
 FINISHED = [0, 1, 0, 1, 0, 1, 0]  # o has won

@@ -35,6 +35,11 @@ from connect4_tpu_torch.models.net import (
     init_net,
 )
 
+# The suite runs several workers at once, each with JAX's threads beside
+# PyTorch's: one intra-op thread a worker keeps these small nets from
+# contending for the cores (the results do not depend on it).
+torch.set_num_threads(1)
+
 CONFIGS = [
     dict(),  # the reference default: filters 32, fc 4, res 3
     dict(filters=16, n_fc_layers=2, n_residuals=2),

@@ -25,6 +25,11 @@ from connect4_tpu_torch.eval.evaluators import centre_evaluator_batched, make_ne
 from connect4_tpu_torch.models.convert import from_flax
 from connect4_tpu_torch.training import self_play as sp
 
+# The suite runs several workers at once, each with JAX's threads beside
+# PyTorch's: one intra-op thread a worker keeps these small nets from
+# contending for the cores (the results do not depend on it).
+torch.set_num_threads(1)
+
 
 def _gen(seed=0):
     return torch.Generator().manual_seed(seed)

@@ -30,6 +30,11 @@ from connect4_tpu_torch.models import tower
 from connect4_tpu_torch.models.convert import from_flax, load_example_net, read_example_net
 from connect4_tpu_torch.models.net import fold_bn_params, init_net
 
+# The suite runs several workers at once, each with JAX's threads beside
+# PyTorch's: one intra-op thread a worker keeps these small nets from
+# contending for the cores (the results do not depend on it).
+torch.set_num_threads(1)
+
 SMALL = dict(filters=16, n_fc_layers=2, n_residuals=2, compute_dtype="bfloat16")
 
 
