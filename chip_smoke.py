@@ -55,7 +55,28 @@ fatal on failure:
    of each generation while its plain version was never entered;
 9. play gen-161 against the centre heuristic (64 simulations, 2-ply starts,
    both colours): a return under 0.5 is a fault;
-10. print the ``kernels`` JSON line, the card's name and power limit, and
+10. [dp] data parallelism with two ranks sharing the card through gloo
+    (spawned processes on ``cuda:0``; a rank that fails fails the run):
+    sharded refill self-play of 256 games in 256 slots with gen-161 (K=8,
+    64 simulations, noise on), whose games must finish, replay legally and
+    open differently on the two ranks; three data-parallel train steps at
+    full width and batch 4096 (2048 a rank), float32 and bf16, held against
+    the single-process step with the limits of phase 6 (and the momentum
+    buffers with ``TOL_DP_MOMENTUM``, which a planted fault must exceed),
+    the replicas equal bit for bit after each, timed beside the
+    single-process step with the share of the all-reduces; one ``TrainingLoop`` generation with
+    ``mesh_shape=(2,)`` at the depth of phase 8 (no match), then a resumed
+    one. Each rank's launches by batch go through the [shapes] check, and
+    neither rank may enter the plain tower;
+11. a one-rank NCCL group takes one data-parallel step, bit for bit the
+    single-process step;
+12. [host] ``HostMCTS`` and ``GridSearch`` choose the tactic table's moves,
+    and the batched search on the card agrees with ``HostMCTS``; the exact
+    solver builds with g++ and agrees with exhaustive minimax on 300
+    late-game positions of seeded random playouts;
+13. [supervisor] the supervisor runs ``cli training --device cuda
+    --generations 1`` on a tiny config; the child exits 0 with a checkpoint;
+14. print the ``kernels`` JSON line, the card's name and power limit, and
     last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
@@ -119,6 +140,12 @@ GENERATION = dict(
 # in different orders, so single roundings flip and spread.
 TOL_TRAIN_F32 = dict(loss=1e-4, state=1e-4)
 TOL_TRAIN_BF16 = dict(loss=5e-2, state=5e-3)
+# The [dp] steps' momentum buffers against one process's after three steps
+# at batch 4096: the largest sound readings on the H100 were 1.19e-4 in
+# float32 and 1.70e-3 in bf16, each in value_head.conv.weight; the limit
+# sits above them and below what a planted fault (the gradients averaged
+# over the ranks, not summed) gives, which the [dp] phase reads every run.
+TOL_DP_MOMENTUM = dict(float32=5e-4, bfloat16=5e-3)
 
 
 def log(*args):
@@ -148,13 +175,20 @@ class LaunchShapes:
 
     def take(self, path: str):
         """The launches by batch since the last call, checked."""
-        seen, self.by_boards = dict(sorted(self.by_boards.items(), reverse=True)), {}
-        log(f"[shapes] {path}: tower kernel launches by batch {seen}")
-        missing = sorted(set(seen) - set(COMPARE_BOARDS))
-        if missing:
-            fail(f"{path} launched the tower kernel at B={missing}, "
-                 f"which was not held against the plain version")
-        return seen
+        seen, self.by_boards = self.by_boards, {}
+        return check_shapes(path, seen)
+
+
+def check_shapes(path: str, seen: dict) -> dict:
+    """Print a path's tower launches by batch; fail on a batch that was
+    not held against the plain version."""
+    seen = dict(sorted(seen.items(), reverse=True))
+    log(f"[shapes] {path}: tower kernel launches by batch {seen}")
+    missing = sorted(set(seen) - set(COMPARE_BOARDS))
+    if missing:
+        fail(f"{path} launched the tower kernel at B={missing}, "
+             f"which was not held against the plain version")
+    return seen
 
 
 def random_positions(n: int, generator, device):
@@ -462,6 +496,498 @@ def gen161_match(net, dev, shapes):
     return result
 
 
+# ---------------------------------------------------------------------------
+# [dp]: data parallelism, two ranks sharing the one card through gloo
+
+DP = dict(
+    world=2, device="cuda:0", backend="gloo",
+    selfplay=dict(slots=256, games=256, simulations=64, parallel_sims=8, seed=0),
+    batch=4096, steps=3, time_steps=5, seed=3,
+)
+
+
+def state_tensors(state) -> dict:
+    """Every parameter, running statistic and momentum buffer of a
+    ``TrainState`` by name."""
+    out = {k: t.detach() for k, t in state.net.state_dict().items()}
+    for name, p in state.net.named_parameters():
+        buf = state.optimizer.state.get(p, {}).get("momentum_buffer")
+        if buf is not None:
+            out[f"momentum {name}"] = buf
+    return out
+
+
+def state_vector(state):
+    """``state_tensors`` as one float64 vector (float32 and int64 convert
+    exactly), to compare replicas bit for bit."""
+    import torch
+
+    return torch.cat([t.reshape(-1).double() for t in state_tensors(state).values()])
+
+
+def state_max_diff(a, b, momentum: bool = False):
+    """(largest |difference|, the entry it is in) between two states: of the
+    net's parameters and running statistics, as the [check] train step
+    compares them, or with ``momentum`` of the optimisers' momentum buffers."""
+    ta, tb = state_tensors(a), state_tensors(b)
+    keys = [k for k in ta if k.startswith("momentum ") == momentum and not k.endswith("num_batches_tracked")]
+    return max(((ta[k].double() - tb[k].double()).abs().max().item(), k) for k in keys)
+
+
+def train_batches(n, count, generator, dev):
+    """``count`` training batches of ``n`` legal positions with made-up
+    targets, in the stored uint8 NCHW form."""
+    import torch
+
+    from connect4_tpu_torch.env.core import to_planes
+
+    out = []
+    for _ in range(count):
+        planes = to_planes(random_positions(n, generator, dev), dtype=torch.uint8)
+        values = torch.randint(0, 3, (n,), generator=generator, device=dev).float() / 2
+        priors = torch.softmax(2 * torch.randn((n, 7), generator=generator, device=dev), -1)
+        out.append((planes, values, priors))
+    return out
+
+
+def dp_rank(rank, init_file, out_dir):
+    """One rank of the [dp] phase, in a spawned process on ``DP['device']``:
+    sharded refill self-play, data-parallel train steps against the
+    single-process step (rank 0 runs that), and two ``TrainingLoop``
+    generations with ``mesh_shape=(2,)``, the second resumed. Its numbers go
+    to ``<out_dir>/rank<r>.pt``; an exception fails the rank, and the spawn
+    fails the parent."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from connect4_tpu_torch.config import AlphaZeroConfig, MCTSConfig, ModelConfig, NetConfig, StorageConfig
+    from connect4_tpu_torch.eval.evaluators import make_net_evaluator
+    from connect4_tpu_torch.models import tower
+    from connect4_tpu_torch.models.convert import load_example_net
+    from connect4_tpu_torch.parallel import mesh as pmesh
+    from connect4_tpu_torch.parallel.sharded import make_sharded_train_step
+    from connect4_tpu_torch.training import learner
+    from connect4_tpu_torch.training.learner import init_train_state, make_train_step
+    from connect4_tpu_torch.training.loop import TrainingLoop
+    from connect4_tpu_torch.training.self_play import make_refill_play_fn
+    from connect4_tpu_torch.utils import make_generator, resolve_device
+
+    dev = resolve_device(DP["device"])
+    pmesh.initialize_distributed(DP["backend"], dev, init_method=f"file://{init_file}", rank=rank,
+                                 world_size=DP["world"])
+    mesh = pmesh.make_mesh((DP["world"],), dev)
+    out = {"mesh": [mesh.rank, mesh.world_size, str(mesh.device), mesh.backend]}
+    shapes = LaunchShapes(tower)
+    plain_calls = []
+    tower_plain = tower.tower_plain
+
+    def watched_plain(*args, **kwargs):
+        plain_calls.append(1)
+        return tower_plain(*args, **kwargs)
+
+    tower.tower_plain = watched_plain
+
+    def replicas_equal(state):
+        both = pmesh.all_gather_rows(state_vector(state)[None], mesh)
+        return all(bool(torch.equal(both[0], both[r])) for r in range(1, DP["world"]))
+
+    # --- sharded refill self-play ------------------------------------------
+    sp = DP["selfplay"]
+    cfg = MCTSConfig(simulations=sp["simulations"], parallel_sims=sp["parallel_sims"],
+                     root_dirichlet_alpha=0.3, root_exploration_fraction=0.25, num_sampling_moves=6)
+    play = make_refill_play_fn(make_net_evaluator(load_example_net(device=dev)), cfg, sp["slots"],
+                               sp["games"], mesh=mesh)
+    generator = mesh.fork_generator(make_generator(sp["seed"], dev))
+    mesh.barrier()
+    torch.cuda.synchronize()
+    tower.run_tower.launches = 0
+    t0 = time.perf_counter()
+    games = play(generator)
+    torch.cuda.synchronize()
+    out["selfplay"] = {"seconds": time.perf_counter() - t0, "launches": tower.run_tower.launches,
+                       "by_boards": shapes.by_boards}
+    shapes.by_boards = {}
+    if rank == 0:
+        torch.save(type(games)(*(x.cpu() for x in games)), os.path.join(out_dir, "games.pt"))
+
+    # --- data-parallel train steps against the single-process step -----------
+    sound_all_reduce_grads = learner._all_reduce_grads
+
+    def averaged_grads(net, mesh):  # the planted fault: averaged, not summed
+        sound_all_reduce_grads(net, mesh)
+        for p in net.parameters():
+            p.grad.div_(mesh.world_size)
+
+    t_train = time.perf_counter()
+    batches = train_batches(DP["batch"], DP["steps"], make_generator(DP["seed"], dev), dev)
+    out["train"] = {}
+    for dtype in ("float32", "bfloat16"):
+        config = ModelConfig(net_config=NetConfig(filters=64, n_fc_layers=6, n_residuals=6, compute_dtype=dtype))
+        state = init_train_state(config, torch.Generator().manual_seed(7), dev)
+        dp_step = make_sharded_train_step(state.net, state.optimizer, mesh)
+        one = init_train_state(config, torch.Generator().manual_seed(7), dev)
+        one_step = make_train_step(one.net, one.optimizer)
+        faulty = init_train_state(config, torch.Generator().manual_seed(7), dev)
+        faulty_step = make_train_step(faulty.net, faulty.optimizer, mesh=mesh)
+        rec = {"loss_dp": [], "loss_one": [], "loss_max_diff": 0.0, "state_max_diff": (0.0, ""),
+               "momentum_max_diff": (0.0, ""), "fault_momentum_max_diff": (0.0, ""), "replicas_equal": []}
+        for batch in batches:
+            rec["loss_dp"].append(float(dp_step(*batch)["loss"]))
+            rec["replicas_equal"].append(replicas_equal(state))
+            learner._all_reduce_grads = averaged_grads
+            try:
+                faulty_step(*batch)
+            finally:
+                learner._all_reduce_grads = sound_all_reduce_grads
+            if rank == 0:
+                rec["loss_one"].append(float(one_step(*batch)["loss"]))
+                rec["loss_max_diff"] = max(rec["loss_max_diff"], abs(rec["loss_dp"][-1] - rec["loss_one"][-1]))
+                rec["state_max_diff"] = max(rec["state_max_diff"], state_max_diff(state, one))
+                rec["momentum_max_diff"] = max(rec["momentum_max_diff"], state_max_diff(state, one, True))
+                rec["fault_momentum_max_diff"] = max(rec["fault_momentum_max_diff"],
+                                                     state_max_diff(faulty, one, True))
+        del faulty, faulty_step
+        # time: every rank steps together, each all-reduce timed with the
+        # card synchronised before and after it (a gloo all-reduce of a CUDA
+        # tensor waits for the card anyway); rank 0 then times the plain
+        # step on the whole batch while the other ranks wait
+        mesh.barrier()
+        spent = [0.0, 0]
+        all_reduce = pmesh.Mesh.all_reduce
+
+        def timed(self, tensor):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = all_reduce(self, tensor)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+            spent[1] += 1
+            return result
+
+        pmesh.Mesh.all_reduce = timed
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP["time_steps"]):
+                dp_step(*batches[0])
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        finally:
+            pmesh.Mesh.all_reduce = all_reduce
+        rec["dp_ms"] = total / DP["time_steps"] * 1e3
+        rec["all_reduce_share"] = spent[0] / total
+        rec["all_reduces_per_step"] = spent[1] / DP["time_steps"]
+        if rank == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP["time_steps"]):
+                one_step(*batches[0])
+            torch.cuda.synchronize()
+            rec["one_ms"] = (time.perf_counter() - t0) / DP["time_steps"] * 1e3
+        mesh.barrier()
+        out["train"][dtype] = rec
+    out["train_seconds"] = time.perf_counter() - t_train
+
+    # --- the training generation on the mesh, then resumed -------------------
+    G = GENERATION
+    config = AlphaZeroConfig(
+        model_config=ModelConfig(net_config=NetConfig(**G["net"]), batch_size=G["batch_size"],
+                                 n_training_epochs=G["epochs"]),
+        storage_config=StorageConfig(save_dir=os.path.join(out_dir, "run")),
+        simulations=G["simulations"], parallel_sims=G["parallel_sims"], n_training_games=G["games"],
+        selfplay_batch=G["slots"], n_eval=0, seed=0, mesh_shape=(DP["world"],),
+    )
+    out["generations"] = []
+    for gen in (1, 2):
+        loop = TrainingLoop(config, device=dev)  # generation 2: a new loop, resumed
+        start = loop.gen
+        tower.run_tower.launches = 0
+        t0 = time.perf_counter()
+        loop.run(generations=1)
+        torch.cuda.synchronize()
+        out["generations"].append({
+            "generation": gen, "started_at": start, "seconds": time.perf_counter() - t0,
+            "phases": dict(loop.timer.seconds), "launches": tower.run_tower.launches,
+            "by_boards": shapes.by_boards, "steps": len(loop.train_losses),
+            "first_loss": loop.train_losses[0], "last_loss": loop.train_losses[-1],
+            "replicas_equal": replicas_equal(loop.state),
+        })
+        shapes.by_boards = {}
+    out["plain_calls"] = len(plain_calls)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def join_ranks(ranks, seconds: float) -> None:
+    """Wait for spawned ranks; ``join`` raises when one failed (after ending
+    the others). Fails when they outlast ``seconds``."""
+    deadline = time.monotonic() + seconds
+    while not ranks.join(timeout=max(deadline - time.monotonic(), 0.0)):
+        if time.monotonic() >= deadline:
+            for p in ranks.processes:
+                p.kill()
+            fail(f"the ranks did not finish within {seconds} s")
+
+
+def drive_dp(dev):
+    """Phase 10, [dp]: two ranks on the one card (gloo, spawned), checked."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as tmp
+
+    from connect4_tpu_torch.training import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out_dir:
+        t0 = time.perf_counter()
+        ranks = tmp.spawn(dp_rank, args=(os.path.join(out_dir, "init"), out_dir), nprocs=DP["world"],
+                          join=False, start_method="spawn")
+        join_ranks(ranks, 900)
+        seconds = time.perf_counter() - t0
+        res = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(DP["world"])]
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_dp.json"), "w") as fh:
+            json.dump(res, fh, indent=1, default=str)
+        games = torch.load(os.path.join(out_dir, "games.pt"), weights_only=False)
+        run = os.path.join(out_dir, "run")
+        if ckpt.latest_generation(run) != 2:
+            fail(f"[dp] the mesh generations left checkpoint {ckpt.latest_generation(run)}, expected 2")
+        for gen in (1, 2):
+            with np.load(os.path.join(run, str(gen), "games.npz")) as g:
+                if g["result"].shape[0] != GENERATION["games"] or not (g["result"] != 0).all():
+                    fail(f"[dp] generation {gen}: not every game finished")
+    # print every line first, then fail on what is wrong
+    problems = []
+    log(f"[dp] {DP['world']} ranks on {DP['device']} ({DP['backend']}): {[r['mesh'] for r in res]}, "
+        f"{seconds:.1f} s from spawn to exit (rank 0: self-play {res[0]['selfplay']['seconds']:.1f} s, "
+        f"train-step checks {res[0]['train_seconds']:.1f} s, generations "
+        f"{sum(g['seconds'] for g in res[0]['generations']):.1f} s)")
+    sp = DP["selfplay"]
+    moves = replay_games(games)
+    if games.result.shape[0] != sp["games"] or not bool((games.result != 0).all()):
+        problems.append("sharded self-play: not every game finished")
+    half = sp["games"] // DP["world"]
+    if torch.equal(games.moves[:half, :6], games.moves[half:, :6]):
+        problems.append("both ranks played the same openings")
+    launches = {"selfplay": 0, "generation": 0}
+    by_boards = {}
+    for r, rr in enumerate(res):
+        if rr["plain_calls"]:
+            problems.append(f"rank {r} entered the plain tower {rr['plain_calls']} times on the card")
+        paths = [("selfplay", rr["selfplay"])] + [("generation", g) for g in rr["generations"]]
+        for name, p in paths:
+            if p["launches"] == 0:
+                problems.append(f"rank {r} never launched the tower kernel in {name}")
+            launches[name] += p["launches"]
+            for b, n in check_shapes(f"dp rank {r} {name}", p["by_boards"]).items():
+                by_boards[b] = by_boards.get(b, 0) + n
+    log(f"[dp] sharded refill self-play, {sp['games']} games in {sp['slots']} slots (gen-161, K=8, "
+        f"{sp['simulations']} sims, noise on): {moves} moves replay on the host board; "
+        + ", ".join(f"rank {r} {rr['selfplay']['seconds']:.2f} s, {rr['selfplay']['launches']} tower launches"
+                    for r, rr in enumerate(res)))
+    for dtype, tol in (("float32", TOL_TRAIN_F32), ("bfloat16", TOL_TRAIN_BF16)):
+        tol = {**tol, "momentum": TOL_DP_MOMENTUM[dtype]}
+        recs = [rr["train"][dtype] for rr in res]
+        r0 = recs[0]
+        log(f"[dp] train step {dtype}, {DP['steps']} steps at batch {DP['batch']} "
+            f"({DP['batch'] // DP['world']} a rank) vs one process on the card: losses "
+            f"{['%.6f' % x for x in r0['loss_dp']]} vs {['%.6f' % x for x in r0['loss_one']]}, |loss| max "
+            f"{r0['loss_max_diff']:.3g} (limit {tol['loss']}), |parameter or statistic| max "
+            f"{r0['state_max_diff'][0]:.3g} at {r0['state_max_diff'][1]} (limit {tol['state']}), "
+            f"|momentum| max {r0['momentum_max_diff'][0]:.3g} at {r0['momentum_max_diff'][1]} (limit "
+            f"{tol['momentum']}; planted fault, gradients averaged over the ranks: "
+            f"{r0['fault_momentum_max_diff'][0]:.3g} at {r0['fault_momentum_max_diff'][1]}); "
+            f"replicas equal after each step {r0['replicas_equal']}")
+        log(f"[dp] train step {dtype} time: data parallel {r0['dp_ms']:.2f} ms a step, one process "
+            f"{r0['one_ms']:.2f} ms; all-reduces {r0['all_reduces_per_step']:.0f} a step, "
+            f"{100 * r0['all_reduce_share']:.1f}% of a step (each timed with a sync around it)")
+        if not all(r["replicas_equal"] == [True] * DP["steps"] for r in recs):
+            problems.append(f"{dtype}: the replicas differ after a step")
+        if (not r0["loss_max_diff"] <= tol["loss"] or not r0["state_max_diff"][0] <= tol["state"]
+                or not r0["momentum_max_diff"][0] <= tol["momentum"]):
+            problems.append(f"{dtype}: the data-parallel step differs from one process beyond {tol}")
+        if not r0["fault_momentum_max_diff"][0] > tol["momentum"]:
+            problems.append(f"{dtype}: the momentum check does not catch the planted fault")
+    gens = [rr["generations"] for rr in res]
+    for i, g in enumerate(gens[0]):
+        log(f"[dp] generation {g['generation']}{' (resumed)' if i else ''} on the mesh: "
+            f"{g['seconds']:.2f} s = " + ", ".join(f"{k} {v:.2f}" for k, v in g["phases"].items())
+            + f"; {g['steps']} steps, loss {g['first_loss']:.4f} -> {g['last_loss']:.4f}; tower launches "
+            + ", ".join(f"rank {r} {gr[i]['launches']}" for r, gr in enumerate(gens)))
+        if [gr[i]["started_at"] for gr in gens] != [i + 1] * DP["world"]:
+            problems.append(f"generation {i + 1}: the ranks started at {[gr[i]['started_at'] for gr in gens]}")
+        if not all(gr[i]["replicas_equal"] for gr in gens):
+            problems.append(f"generation {i + 1}: the replicas differ")
+        if not (np.isfinite(g["first_loss"]) and np.isfinite(g["last_loss"])):
+            problems.append(f"generation {i + 1}: losses not finite")
+    if problems:
+        fail("[dp] " + "; ".join(problems))
+    return {"config": DP, "seconds": seconds, "ranks": res, "moves": moves, "launches": launches,
+            "launches_by_boards": by_boards}
+
+
+def nccl_one_rank(dev):
+    """Phase 11: a one-rank NCCL group takes one data-parallel step, which
+    must equal the single-process step bit for bit (with cuDNN's
+    deterministic algorithms, so that two runs of one step agree)."""
+    import torch
+    import torch.distributed as dist
+
+    from connect4_tpu_torch.config import ModelConfig, NetConfig
+    from connect4_tpu_torch.parallel import mesh as pmesh
+    from connect4_tpu_torch.parallel.sharded import make_sharded_train_step
+    from connect4_tpu_torch.training.learner import init_train_state, make_train_step
+    from connect4_tpu_torch.utils import make_generator
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as d:
+        pmesh.initialize_distributed("nccl", dev, init_method=f"file://{d}/init", rank=0, world_size=1)
+        try:
+            mesh = pmesh.make_mesh((1,), dev)
+            batch = train_batches(512, 1, make_generator(DP["seed"], dev), dev)[0]
+            config = ModelConfig(net_config=NetConfig(filters=64, n_fc_layers=6, n_residuals=6))
+            states = [init_train_state(config, torch.Generator().manual_seed(7), dev) for _ in range(3)]
+            losses = [float(make_sharded_train_step(states[0].net, states[0].optimizer, mesh)(*batch)["loss"])]
+            losses += [float(make_train_step(s.net, s.optimizer)(*batch)["loss"]) for s in states[1:]]
+            vecs = [state_vector(s) for s in states]
+        finally:
+            dist.destroy_process_group()
+            torch.backends.cudnn.deterministic = deterministic
+    out = {"backend": mesh.backend, "losses": losses,
+           "dp_equals_one": losses[0] == losses[1] and bool(torch.equal(vecs[0], vecs[1])),
+           "one_equals_one": losses[1] == losses[2] and bool(torch.equal(vecs[1], vecs[2]))}
+    log(f"[dp] one-rank {mesh.backend} group, one float32 step at batch 512: data parallel equals the "
+        f"single-process step bit for bit: {out['dp_equals_one']} (two single-process steps: "
+        f"{out['one_equals_one']}); loss {losses[0]!r}")
+    if not out["dp_equals_one"]:
+        fail(f"[dp] the one-rank NCCL step differs from the single-process step: {out}")
+    return out
+
+
+# tests/test_mcts.py's tactic table: (moves, plies, acceptable best moves)
+TACTICS = [
+    ([1, 1, 2, 2, 3, 3], 1, {0, 4}),
+    ([6, 0, 6, 1, 5, 2], 2, {3}),
+    ([5, 0, 5, 1, 5, 2], 1, {5}),
+    ([], 1, {3}),
+    ([0, 6, 1, 6, 0, 6], 2, {6}),
+]
+
+
+def host_phase(dev):
+    """Phase 12, [host]: the reference searches choose the tactic table's
+    moves and the batched search on the card agrees with the host MCTS;
+    the solver builds with g++ and agrees with exhaustive minimax on
+    late-game positions of seeded random playouts."""
+    import numpy as np
+    import torch
+
+    from connect4_tpu_torch import build
+    from connect4_tpu_torch.config import MCTSConfig
+    from connect4_tpu_torch.env.convert import stack_boards
+    from connect4_tpu_torch.env.host_board import HostBoard
+    from connect4_tpu_torch.eval.evaluators import (
+        centre_evaluator_batched,
+        centre_evaluator_host,
+        centre_value_host,
+    )
+    from connect4_tpu_torch.eval.grid_search import GridSearch, minimax_value
+    from connect4_tpu_torch.mcts.batched import make_search_fn
+    from connect4_tpu_torch.mcts.host import HostMCTS
+    from connect4_tpu_torch.native import solver
+    from connect4_tpu_torch.utils import make_generator
+
+    for moves, plies, best in TACTICS:
+        board = HostBoard()
+        for m in moves:
+            board.make_move(m)
+        grid, _ = GridSearch(plies, centre_value_host).choose(board)
+        config = MCTSConfig(simulations=7**plies + 1, pb_c_init=9999.0)
+        host = HostMCTS(config, centre_evaluator_host)
+        root = host.search(board.copy())
+        host_move = host._best_child(root, board.player_to_move).move
+        res = make_search_fn(centre_evaluator_batched, config)(stack_boards([board], device=dev),
+                                                              make_generator(0, dev))
+        base = int(res.tree.children_base[0, 0])
+        visits = res.tree.visits[0, base:base + 7].cpu().numpy()
+        host_visits = np.array([root.children[m].visits if m in root.children else 0 for m in range(7)])
+        log(f"[host] {moves}: GridSearch {grid}, HostMCTS {host_move}, batched on the card "
+            f"{int(res.move[0])} (expected {sorted(best)}); root visits equal {bool((visits == host_visits).all())}")
+        if grid not in best or host_move not in best or int(res.move[0]) != host_move \
+                or not (visits == host_visits).all():
+            fail(f"[host] the searches disagree on {moves}")
+
+    t0 = time.perf_counter()
+    exact = solver.ExactSolver(1 << 22)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    boards = []
+    while len(boards) < 300:
+        board, target = HostBoard(), int(rng.integers(34, 40))
+        while board.result is None and board.age < target:
+            board.make_move(int(rng.choice(sorted(board.valid_moves))))
+        if board.result is None:
+            boards.append(board)
+
+    def no_leaf(board):
+        raise AssertionError("an exhaustive search evaluates no leaf")
+
+    t0 = time.perf_counter()
+    values = exact.absolute_values(boards)
+    solve_s = time.perf_counter() - t0
+    # minimax nudges a terminal value by the game's age/10000; the nearest
+    # half is the game-theoretic value
+    want = np.array([np.round(2 * minimax_value(b, 42 - b.age, no_leaf)) / 2 for b in boards])
+    agree = int((values == want).sum())
+    log(f"[host] solver (g++, {os.path.basename(build.library_path(solver.SOURCE, build.GXX))}) "
+        f"ready in {build_s:.1f} s; {len(boards)} positions at ages 34-39: {agree} agree with exhaustive "
+        f"minimax, solved in {solve_s:.3f} s ({exact.nodes:,} nodes)")
+    if agree != len(boards):
+        fail("[host] the solver disagrees with exhaustive minimax")
+    return {"positions": len(boards), "agree": agree, "build_s": build_s, "solve_s": solve_s}
+
+
+def supervisor_phase():
+    """Phase 13, [supervisor]: the watchdog runs one generation of the
+    training CLI on the card (a tiny float32 net, 8 games, no match) and the
+    child's checkpoint exists."""
+    from connect4_tpu_torch.training import checkpoint as ckpt
+    from connect4_tpu_torch.training.supervisor import supervise
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sup_") as d:
+        config = os.path.join(d, "config.py")
+        with open(config, "w") as fh:
+            fh.write(
+                "from connect4_tpu_torch.config import *\n"
+                "config = AlphaZeroConfig(\n"
+                "    model_config=ModelConfig(net_config=NetConfig(filters=8, n_fc_layers=1, n_residuals=1),\n"
+                "                             batch_size=64, n_training_epochs=1),\n"
+                f"    storage_config=StorageConfig(save_dir={os.path.join(d, 'run')!r},\n"
+                f"                                 data_dir={os.path.join(d, 'nodata')!r}),\n"
+                "    simulations=8, parallel_sims=4, n_training_games=8, selfplay_batch=8, n_eval=0)\n")
+        t0, launched = time.perf_counter(), time.time()
+        code = supervise(config, os.path.join(d, "train.log"), generations=1, poll_seconds=0.5,
+                         stall_seconds=300, settle_seconds=0, max_restarts=1, device="cuda",
+                         extra_env={"PYTHONPATH": os.pathsep.join(filter(None, (ROOT, os.environ.get("PYTHONPATH"))))})
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(d, "train.log")) as fh:
+            tail = fh.read()[-2000:]
+        saved = os.path.exists(os.path.join(d, "run", "1", "ckpt", ckpt.FILE_NAME))
+    phases = [line.strip() for line in tail.splitlines() if line.startswith("generate:")]
+    # the loop logs "Time now: <asctime>" as its generation starts: the
+    # child's start on the card (interpreter, imports, CUDA) comes before it
+    started = [time.mktime(time.strptime(line.split("Time now: ")[1].strip()))
+               for line in tail.splitlines() if line.startswith("Time now: ")]
+    startup = f"{started[0] - launched:.0f} s" if started else "not read"
+    log(f"[supervisor] cli training --device cuda --generations 1 under the supervisor: exit {code}, "
+        f"checkpoint {'written' if saved else 'MISSING'}, {seconds:.1f} s (the child's start to its "
+        f"generation {startup}, to the second; the generation: {phases[-1] if phases else 'no phase line'})")
+    if code != 0 or not saved:
+        fail(f"[supervisor] the supervised run failed (exit {code}); its log ends:\n{tail}")
+    return {"exit": code, "checkpoint": saved, "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -674,10 +1200,24 @@ def main() -> int:
              f"{generation_shapes}")
     report["match"] = gen161_match(net, dev, shapes)
 
-    # --- 10. result lines ------------------------------------------------------
+    # --- 10.-13. data parallelism, the host search and solver, the supervisor --
+    seconds = {}
+    for name, phase in (("dp", lambda: drive_dp(dev)), ("nccl", lambda: nccl_one_rank(dev)),
+                        ("host", lambda: host_phase(dev)), ("supervisor", supervisor_phase)):
+        t0 = time.perf_counter()
+        report[name] = phase()
+        seconds[name] = time.perf_counter() - t0
+    report["phase_seconds"] = seconds
+    log("[phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+        + f"; together {sum(seconds.values()):.1f} s")
+    dp_launches = sum(report["dp"]["launches"].values())
+    for b, n in report["dp"]["launches_by_boards"].items():
+        generation_shapes[b] = generation_shapes.get(b, 0) + n
+
+    # --- 14. result lines ------------------------------------------------------
     # time, bound and library time at the batch most launches of the
     # generations have (their self-play's leaves); the error is the largest
-    # over every shape the generations launched
+    # over every shape the generations and the [dp] ranks launched
     t_report = times[report_boards]
     kernels = [{
         "name": "tower",
@@ -685,9 +1225,12 @@ def main() -> int:
         "source": "connect4_tpu_torch/models/csrc/tower.cu",
         "replaces": "connect4_tpu/models/pallas_net.py:153",
         # of the training generations of phase 8 (self-play and gating match
-        # of both); the self-play path of phase 5 is counted beside it
-        "launches": generation_launches,
-        "launches_by_path": {"selfplay": launches, "generation": generation_launches},
+        # of both) and of the [dp] ranks (sharded self-play and two mesh
+        # generations); the self-play path of phase 5 is counted beside it
+        "launches": generation_launches + dp_launches,
+        "launches_by_path": {"selfplay": launches, "generation": generation_launches,
+                             "dp_selfplay": report["dp"]["launches"]["selfplay"],
+                             "dp_generation": report["dp"]["launches"]["generation"]},
         "launches_by_boards": generation_shapes,
         "boards": report_boards,
         "max_abs_err": max(errs[b]["model"]["tower_max"] for b in generation_shapes),

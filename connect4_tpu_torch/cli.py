@@ -5,7 +5,10 @@ Modes mirror the JAX package's CLI:
 - ``game``: interactive human-vs-AI in the terminal (two games, one per
   colour); plays the packaged gen-161 net unless given a checkpoint.
 - ``training``: run the training loop from a Python config file defining
-  ``config`` (a ``connect4_tpu_torch.config.AlphaZeroConfig``).
+  ``config`` (a ``connect4_tpu_torch.config.AlphaZeroConfig``). Under
+  ``torchrun --nproc_per_node W`` (a config with ``mesh_shape=(W,)``) every
+  process joins the group and trains data parallel; ``--device cuda`` is
+  then ``cuda:<LOCAL_RANK>``.
 - ``match``: head-to-head between two checkpoints (or the centre
   heuristic where no checkpoint directory is given). A checkpoint carries
   its net's architecture, so there are no width flags.
@@ -114,11 +117,25 @@ def cmd_game(args):
 
 
 def cmd_training(args):
+    import os
+
     from connect4_tpu_torch.config import load_config_file
     from connect4_tpu_torch.training.loop import TrainingLoop
 
     config = load_config_file(args.config)
-    TrainingLoop(config, device=args.device).run(args.generations, until=args.until_generation)
+    if "WORLD_SIZE" not in os.environ:  # not launched by torchrun
+        TrainingLoop(config, device=args.device).run(args.generations, until=args.until_generation)
+        return
+    import torch.distributed as dist
+
+    from connect4_tpu_torch.parallel.mesh import initialize_distributed, local_device
+
+    device = local_device(args.device)
+    initialize_distributed("gloo" if device.type == "cpu" else "nccl", device)
+    try:
+        TrainingLoop(config, device=device).run(args.generations, until=args.until_generation)
+    finally:
+        dist.destroy_process_group()
 
 
 def cmd_match(args):

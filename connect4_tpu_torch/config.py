@@ -122,21 +122,11 @@ class AlphaZeroConfig:
     # whole search in one call); must divide ``simulations``.
     sims_per_call: Optional[int] = None
     seed: int = 0
-    # Device mesh axis sizes of the JAX package. The port runs on one
-    # device: the field is kept so that configs carry over, and a value
-    # other than None is refused (see require_single_device).
+    # Data-parallel mesh: None runs on one device; (W,) runs on the W ranks
+    # of a torch.distributed group (one process a card, launched by
+    # torchrun), which must exist with exactly that many ranks
+    # (parallel.mesh.make_mesh).
     mesh_shape: Optional[Tuple[int, ...]] = None
-
-    def __post_init__(self):
-        self.require_single_device()
-
-    def require_single_device(self) -> None:
-        if self.mesh_shape is not None:
-            raise NotImplementedError(
-                f"mesh_shape={self.mesh_shape!r}: the PyTorch port runs on one "
-                "device; leave mesh_shape=None (multi-device training is only "
-                "in the JAX package so far)"
-            )
 
     def search_config(self, training: bool) -> MCTSConfig:
         """Exploration on for self-play, off for evaluation matches."""

@@ -2,12 +2,15 @@
 
 The counterpart of ``connect4_tpu.eval.evaluators``. A batched evaluator
 maps a ``BoardState`` with batch shape ``[...]`` to ``(value [...],
-prior [..., 7])`` float32 tensors on the state's device.
+prior [..., 7])`` float32 tensors on the state's device; a host evaluator
+maps one ``HostBoard`` to ``(value, prior [7])`` in numpy, for the
+sequential reference search (``mcts.host``) and ``eval.grid_search``.
 
-- ``centre_evaluator_batched``: the deterministic centre-weighted
-  heuristic (each stone scores its distance-from-edge weight, value =
-  0.5 + (o_score - x_score) / 96, prior uniform), in float32 as in the JAX
-  package, so search trees can be compared across the two.
+- ``centre_evaluator_batched`` and ``centre_evaluator_host``: the
+  deterministic centre-weighted heuristic (each stone scores its
+  distance-from-edge weight, value = 0.5 + (o_score - x_score) / 96, prior
+  uniform), in float32 as in the JAX package, so search trees can be
+  compared across the two packages and between the host and batched search.
 - ``make_net_evaluator``: a network forward on the planes of the leaf
   boards. With ``fold_bn=True`` and a bf16 net it runs the folded tower
   of ``models.tower``: on a CUDA state that is the hand-written kernel.
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from connect4_tpu_torch.env.core import BoardState, to_planes
+from connect4_tpu_torch.env.host_board import HostBoard
 from connect4_tpu_torch.models import tower
 from connect4_tpu_torch.models.net import Connect4Net, fold_bn_params, inference_net
 from connect4_tpu_torch.types import HEIGHT, WIDTH
@@ -34,8 +38,22 @@ def _make_centre_grid() -> np.ndarray:
 
 CENTRE_GRID = _make_centre_grid()  # [6, 7], symmetric both ways
 CENTRE_GRID_SUM = float(CENTRE_GRID.sum())  # 96.0
+UNIFORM_PRIOR = np.full((WIDTH,), 1.0 / WIDTH, dtype=np.float32)
 
 BatchedEvaluator = Callable[[BoardState], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def centre_value_host(board: HostBoard) -> float:
+    """Scalar heuristic value in float32 (the grid is symmetric, so the
+    bottom-up planes score as the reference's top-down ones)."""
+    o = board.pieces[0].astype(np.float32)
+    x = board.pieces[1].astype(np.float32)
+    diff = np.float32((o * CENTRE_GRID).sum()) - np.float32((x * CENTRE_GRID).sum())
+    return float(np.float32(0.5) + diff / np.float32(CENTRE_GRID_SUM))
+
+
+def centre_evaluator_host(board: HostBoard) -> Tuple[float, np.ndarray]:
+    return centre_value_host(board), UNIFORM_PRIOR.copy()
 
 
 def centre_evaluator_batched(state: BoardState) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -169,19 +169,21 @@ def _score_parts(
     side: torch.Tensor,  # [...]
     config: MCTSConfig,
     valid: torch.Tensor,
-    k: int = 0,
+    node_ov=None,
     c_ov: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """PUCT scores of the 7 child slots; -inf on illegal moves.
 
-    ``k = 0`` and no ``c_ov`` is the exact score (``_child_score_parts``
-    of the JAX package). ``k > 0`` is the constant-overlay score of the K
-    lockstep walkers (``_const_overlay_score_parts``): the selecting node
-    carries ``k`` virtual visits and each child ``c_ov`` of them, counted as
-    losses from the selecting side's perspective."""
+    ``node_ov=None`` is the exact score (``_child_score_parts`` of the JAX
+    package). Otherwise the selecting node carries ``node_ov`` virtual
+    visits and each child ``c_ov`` of them (none when ``c_ov`` is None),
+    counted as losses from the selecting side's perspective: a constant
+    ``node_ov = K`` is the score of the K lockstep walkers
+    (``_const_overlay_score_parts``), a tensor the per-node overlay of the
+    walker form (``_overlay_scores``)."""
     parent_visits = node_stats[..., _VISITS]
-    if k:
-        parent_visits = parent_visits + float(k)
+    if node_ov is not None:
+        parent_visits = parent_visits + (float(node_ov) if isinstance(node_ov, int) else node_ov)
     log_term = torch.log((parent_visits + config.pb_c_base + 1.0) / config.pb_c_base)
     pb_c0 = (log_term + config.pb_c_init) * torch.sqrt(parent_visits)
 
@@ -191,7 +193,7 @@ def _score_parts(
     c_term = child[..., _TERM] > 0.5
     known = c_term | (c_visits > 0)
 
-    if k:
+    if node_ov is not None:
         n_eff = c_visits if c_ov is None else c_visits + c_ov
         side_sum = torch.where(side[..., None] == 0, c_vsum, c_visits - c_vsum)
         diluted = side_sum / n_eff.clamp(min=1.0)
@@ -214,7 +216,7 @@ def _node_scores(tree, rows, node, board, config, valid, capacity, k=0):
     side = board.age % 2
     child = _take_child_block(tree.stats, rows, base, capacity)
     return _score_parts(
-        tree.stats[rows, node], child, tree.prior[rows, node], side, config, valid, k
+        tree.stats[rows, node], child, tree.prior[rows, node], side, config, valid, k or None
     )
 
 
@@ -490,6 +492,104 @@ def _simulate_parallel(
     tree.stats.index_put_(
         (rows[:, None], path), path_incr[:, None, :].expand(batch, PATH_MAX, 4), accumulate=True
     )
+    return tree
+
+
+def _overlay_scores(tree, voverlay, node, board, config, valid, capacity):
+    """PUCT scores of walkers at ``node`` [B, K] with the per-node virtual
+    visit overlay ``voverlay`` [B, N+1] (``_overlay_scores`` of the JAX
+    package; with a zero overlay, the exact score)."""
+    rows = torch.arange(node.shape[0], device=node.device)[:, None]
+    base = tree.children_base[rows, node].long()
+    idx = (base[..., None] + torch.arange(WIDTH, device=node.device)).clamp(0, capacity - 1)
+    return _score_parts(
+        tree.stats[rows, node], tree.stats[rows[..., None], idx], tree.prior[rows, node],
+        board.age % 2, config, valid, voverlay[rows, node], voverlay[rows[..., None], idx],
+    )
+
+
+def _add_overlay(voverlay, node, active, capacity) -> None:
+    """voverlay[b, node] += 1 where active (node [B, K]), in place."""
+    rows = torch.arange(node.shape[0], device=node.device)[:, None]
+    voverlay.index_put_(
+        (rows, torch.where(active, node, capacity)), torch.ones_like(node, dtype=torch.float32),
+        accumulate=True,
+    )
+
+
+def _simulate_parallel_reference(
+    tree: TreeArrays, *, eval_fn, config, root_state, active, capacity
+) -> TreeArrays:
+    """The direct lockstep-walker form of one parallel iteration (K
+    simulations per game at once under a virtual-visit overlay), the golden
+    reference that ``_simulate_parallel`` is held against (the JAX
+    package's function of the same name, on the port's slabs). It walks a
+    redundant [B, K] walker axis through the descent, expands and steps one
+    walker after another, and backs each walker's value up its own path.
+    Only the tests run it."""
+    K = config.parallel_sims
+    batch = root_state.age.shape[0]
+    dev = root_state.device
+    rows = torch.arange(batch, device=dev)
+    rk = rows[:, None]
+
+    voverlay = torch.zeros((batch, capacity + 1), dtype=torch.float32, device=dev)
+    boards = root_state.map(lambda x: x[:, None].expand((batch, K) + tuple(x.shape[1:])))
+    nodes = torch.zeros((batch, K), dtype=torch.long, device=dev)
+    active_k = active[:, None].expand(batch, K)
+    _add_overlay(voverlay, nodes, active_k, capacity)
+
+    # --- lockstep descent over the walker axis ----------------------------
+    descending = active_k & (tree.children_base[rk, nodes] >= 0)
+    while bool(descending.any()):
+        scores = _overlay_scores(tree, voverlay, nodes, boards, config, boards.height < HEIGHT, capacity)
+        move = _argmax_prefer_large(scores)
+        child = tree.children_base[rk, nodes].long() + move
+        boards = _light_step(boards, move, descending)
+        nodes = torch.where(descending, child, nodes)
+        _add_overlay(voverlay, nodes, descending, capacity)
+        descending = descending & (tree.children_base[rk, nodes] >= 0)
+
+    # --- expansion and a fresh-child step, one walker after another -------
+    new_nodes, new_boards = [], []
+    for k in range(K):
+        leaf = nodes[:, k]
+        board_k = boards.map(lambda x: x[:, k])
+        leaf_term = tree.stats[rows, leaf, _TERM] > 0.5
+        expandable = active_k[:, k] & tree.evaluated[rows, leaf] & ~leaf_term
+        need_alloc = expandable & (tree.children_base[rows, leaf] < 0)
+        tree = _expand(tree, rows, leaf, board_k, need_alloc, capacity)
+        scores = _overlay_scores(
+            tree, voverlay, leaf[:, None], board_k.map(lambda x: x[:, None]), config,
+            (board_k.height < HEIGHT)[:, None], capacity,
+        )[:, 0]
+        move = _argmax_prefer_large(scores)
+        cur = torch.where(expandable, tree.children_base[rows, leaf].long() + move, leaf)
+        _add_overlay(voverlay, cur[:, None], expandable[:, None], capacity)
+        new_nodes.append(cur)
+        new_boards.append(_light_step(board_k, move, expandable))
+    nodes = torch.stack(new_nodes, dim=1)
+    boards = BoardState(*(torch.stack(xs, dim=1) for xs in zip(*new_boards)))
+
+    # --- lockstep evaluation ----------------------------------------------
+    cur_stats = tree.stats[rk, nodes]  # [B, K, 4]
+    cur_term = cur_stats[..., _TERM] > 0.5
+    value_net, prior_net = eval_fn(boards.map(lambda x: x.reshape((batch * K,) + x.shape[2:])))
+    value = torch.where(cur_term, cur_stats[..., _TVAL], value_net.reshape(batch, K).float())
+    prior_masked = _mask_normalise(prior_net.reshape(batch, K, WIDTH), boards.height < HEIGHT)
+    store_prior = active_k & ~cur_term & ~tree.evaluated[rk, nodes]
+    safe_nodes = (rk, torch.where(store_prior, nodes, capacity))
+    tree.prior[safe_nodes] = prior_masked
+    tree.evaluated[safe_nodes] = True
+
+    # --- lockstep backup over the walker axis, each walker up its path ----
+    zeros = torch.zeros_like(value)
+    incr = torch.stack([torch.ones_like(value), value, zeros, zeros], dim=-1)  # [B, K, 4]
+    idx, alive = nodes, active_k
+    while bool(alive.any()):
+        tree.stats.index_put_((rk, torch.where(alive, idx, capacity)), incr, accumulate=True)
+        idx = torch.where(alive, tree.parent[rk, idx.clamp(min=0)].long(), idx)
+        alive = alive & (idx >= 0)
     return tree
 
 

@@ -24,6 +24,13 @@ Parity details kept from the JAX net:
   statistics as Flax's ``BatchNorm(momentum=0.9)`` does:
   ``0.9 * running + 0.1 * batch``, with the *biased* batch variance
   (``nn.BatchNorm2d`` would store the unbiased one).
+- Under data parallelism (``forward(..., mesh=...)`` in training mode on
+  more than one rank) BatchNorm takes the mean and variance of the
+  *global* batch, as the JAX package's partitioner does: the per-channel
+  sum is all-reduced first, then the sum of squared deviations from the
+  global mean, both with a gradient (``parallel.mesh.all_reduce_with_grad``;
+  ``nn.SyncBatchNorm`` refuses CPU tensors). Every rank holds the same
+  number of rows.
 """
 
 from __future__ import annotations
@@ -63,14 +70,17 @@ def _dense(x: torch.Tensor, fc: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
 BN_MOMENTUM = 0.9  # Flax's convention: the weight of the old running value
 
 
-def _bn(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """BatchNorm in float32 on the conv's output (bf16 or float32)."""
+def _bn(x: torch.Tensor, bn: nn.BatchNorm2d, mesh=None) -> torch.Tensor:
+    """BatchNorm in float32 on the conv's output (bf16 or float32); in
+    training mode over the global batch of ``mesh``'s ranks."""
     x = x.float()
     if not bn.training:
         return F.batch_norm(
             x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
             training=False, eps=BN_EPS,
         )
+    if mesh is not None and mesh.world_size > 1:
+        return _bn_global(x, bn, mesh)
     # With momentum 1 the fused op leaves the batch mean and the unbiased
     # batch variance in the two scratch buffers, at no extra pass over x.
     mean, var = torch.zeros_like(bn.running_mean), torch.zeros_like(bn.running_var)
@@ -80,6 +90,24 @@ def _bn(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
         bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=(1.0 - BN_MOMENTUM) * (n - 1) / n)
     return y
+
+
+def _bn_global(x: torch.Tensor, bn: nn.BatchNorm2d, mesh) -> torch.Tensor:
+    """Training-mode BatchNorm with the statistics of every rank's rows:
+    the global mean from the all-reduced per-channel sum, then the global
+    biased variance from the all-reduced sum of squared deviations from it
+    (two passes, as a single-device batch computes them)."""
+    from connect4_tpu_torch.parallel.mesh import all_reduce_with_grad
+
+    n = x.numel() // x.shape[1] * mesh.world_size
+    mean = all_reduce_with_grad(x.sum(dim=(0, 2, 3)), mesh) / n
+    d = x - mean[None, :, None, None]
+    var = all_reduce_with_grad((d * d).sum(dim=(0, 2, 3)), mesh) / n
+    scale = bn.weight * torch.rsqrt(var + BN_EPS)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+    return d * scale[None, :, None, None] + bn.bias[None, :, None, None]
 
 
 def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -93,8 +121,8 @@ class _ConvBlock(nn.Module):
         self.conv = nn.Conv2d(cin, filters, 3, padding=1, bias=False)
         self.bn = nn.BatchNorm2d(filters, eps=BN_EPS)
 
-    def forward(self, x, dtype):
-        return lrelu(_bn(_conv(x, self.conv, dtype), self.bn))
+    def forward(self, x, dtype, mesh=None):
+        return lrelu(_bn(_conv(x, self.conv, dtype), self.bn, mesh))
 
 
 class _ResidualBlock(nn.Module):
@@ -105,9 +133,9 @@ class _ResidualBlock(nn.Module):
         self.conv1 = nn.Conv2d(filters, filters, 3, padding=1, bias=False)
         self.bn1 = nn.BatchNorm2d(filters, eps=BN_EPS)
 
-    def forward(self, x, dtype):
-        y = lrelu(_bn(_conv(x, self.conv0, dtype), self.bn0))
-        y = _bn(_conv(y, self.conv1, dtype), self.bn1)
+    def forward(self, x, dtype, mesh=None):
+        y = lrelu(_bn(_conv(x, self.conv0, dtype), self.bn0, mesh))
+        y = _bn(_conv(y, self.conv1, dtype), self.bn1, mesh)
         return lrelu(y + x.float())
 
 
@@ -119,8 +147,8 @@ class _ValueHead(nn.Module):
         self.fcs = nn.ModuleList([nn.Linear(AREA, AREA) for _ in range(n_fc_layers)])
         self.out = nn.Linear(AREA, 1)
 
-    def forward(self, x, dtype):
-        x = _flatten_nhwc(lrelu(_bn(_conv(x, self.conv, dtype), self.bn)))
+    def forward(self, x, dtype, mesh=None):
+        x = _flatten_nhwc(lrelu(_bn(_conv(x, self.conv, dtype), self.bn, mesh)))
         for fc in self.fcs:  # no activation between the Dense layers
             x = _dense(x, fc, dtype)
         x = _dense(lrelu(x), self.out, dtype)
@@ -134,15 +162,17 @@ class _PolicyHead(nn.Module):
         self.bn = nn.BatchNorm2d(2, eps=BN_EPS)
         self.fc = nn.Linear(AREA * 2, WIDTH)
 
-    def forward(self, x, dtype):
-        x = _flatten_nhwc(lrelu(_bn(_conv(x, self.conv, dtype), self.bn)))
+    def forward(self, x, dtype, mesh=None):
+        x = _flatten_nhwc(lrelu(_bn(_conv(x, self.conv, dtype), self.bn, mesh)))
         return torch.softmax(_dense(x, self.fc, dtype).float(), dim=-1)
 
 
 class Connect4Net(nn.Module):
     """Value+policy tower. Input: NHWC ``[N, 6, 7, channels]`` float planes
     (or NCHW ``[N, channels, 6, 7]`` with ``nchw=True``). Returns
-    ``(value [N] in [0,1], prior [N,7] summing to 1)``."""
+    ``(value [N] in [0,1], prior [N,7] summing to 1)``. In training mode a
+    ``mesh`` (``parallel.mesh.Mesh``) makes every BatchNorm take the
+    statistics of all its ranks' rows."""
 
     def __init__(self, config: NetConfig):
         super().__init__()
@@ -155,12 +185,12 @@ class Connect4Net(nn.Module):
         self.value_head = _ValueHead(f, config.n_fc_layers)
         self.policy_head = _PolicyHead(f)
 
-    def forward(self, planes: torch.Tensor, nchw: bool = False):
+    def forward(self, planes: torch.Tensor, nchw: bool = False, mesh=None):
         dtype = compute_dtype(self.config)
-        x = self.conv_block(planes if nchw else planes.permute(0, 3, 1, 2), dtype)
+        x = self.conv_block(planes if nchw else planes.permute(0, 3, 1, 2), dtype, mesh)
         for blk in self.res_blocks:
-            x = blk(x, dtype)
-        return self.value_head(x, dtype), self.policy_head(x, dtype)
+            x = blk(x, dtype, mesh)
+        return self.value_head(x, dtype, mesh), self.policy_head(x, dtype, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,13 @@ net and the optimiser in place, as PyTorch does: ``TrainState`` names the
 two objects that carry everything across steps. The convolutions and Dense
 layers of the training path are library calls under autograd, as they are
 XLA's in the JAX package; the hand-written tower kernel serves inference.
+
+With a ``mesh`` (``parallel.mesh.Mesh``) the step is data parallel, the
+port's form of the JAX package's sharded step: every rank is given the
+whole batch and trains on its own rows, the BatchNorms take the statistics
+of the global batch, each loss is normalised by the global count (the
+weighted value loss by the global weight sum), the gradients are summed
+over the ranks, and every rank takes the same SGD step.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 
 from connect4_tpu_torch.config import ModelConfig
 from connect4_tpu_torch.models.net import Connect4Net, init_net
+from connect4_tpu_torch.parallel.mesh import replicate
 from connect4_tpu_torch.utils import DeviceLike
 
 
@@ -79,23 +87,44 @@ def loss_fn(
     prior_targets: torch.Tensor,
     value_weights: Optional[torch.Tensor] = None,
     nchw: bool = False,
+    mesh=None,
 ):
     """``(total, (value_loss, prior_loss, value, prior))`` of the net in
     its current mode (in training mode the forward also moves the running
-    statistics)."""
-    value, prior = net(planes, nchw=nchw)
+    statistics). With a ``mesh`` the arguments are this rank's rows and the
+    losses this rank's share of the global batch's: summed over the ranks
+    they are the losses of the whole batch."""
+    value, prior = net(planes, nchw=nchw, mesh=mesh)
     sq = (value - value_targets) ** 2
     if value_weights is None:
         value_loss = sq.mean()
     else:
         # weighted mean with per-batch renormalisation so the loss scale
         # (and therefore the LR) is unchanged whatever the batch's draw mix
-        value_loss = (value_weights * sq).sum() / value_weights.sum()
+        total_weight = value_weights.sum()
+        if mesh is not None:
+            total_weight = mesh.all_reduce(total_weight)
+        value_loss = (value_weights * sq).sum() / total_weight
     prior_loss = bce_loss(prior, prior_targets)
+    if mesh is not None:
+        # equal shares: the global mean is the mean of the ranks' means
+        prior_loss = prior_loss / mesh.world_size
+        if value_weights is None:
+            value_loss = value_loss / mesh.world_size
     return value_loss + prior_loss, (value_loss, prior_loss, value, prior)
 
 
-def make_train_step(net: Connect4Net, optimizer: torch.optim.SGD, weighted: bool = False):
+def _all_reduce_grads(net: Connect4Net, mesh) -> None:
+    """Sum every parameter's gradient over the ranks, as one flat buffer."""
+    grads = [p.grad for p in net.parameters()]
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def make_train_step(
+    net: Connect4Net, optimizer: torch.optim.SGD, weighted: bool = False, mesh=None,
+):
     """Returns ``(planes, values, priors) -> metrics``, one SGD step on the
     net and optimiser given here. ``planes`` is float NHWC ``[N, 6, 7, 3]``
     or the stored uint8 NCHW ``[N, 3, 6, 7]``, converted inside the step.
@@ -104,7 +133,16 @@ def make_train_step(net: Connect4Net, optimizer: torch.optim.SGD, weighted: bool
 
     With ``weighted=True`` the step takes a per-sample value-loss weight
     array ``(planes, values, priors, weights)``, used by the
-    ``draw_loss_weight`` extension; without it a weight array is ignored."""
+    ``draw_loss_weight`` extension; without it a weight array is ignored.
+
+    With a ``mesh`` every rank calls the step with the same whole batch and
+    the same replica. Where the rows divide over the ranks the step trains
+    on this rank's rows (``Mesh.rows``), sums the gradients over the ranks
+    and returns the metrics of the whole batch: every rank applies the same
+    summed gradient to the same parameters. A batch that does not divide
+    (an epoch's tail) runs whole on every rank with no all-reduce, as the
+    JAX loop runs it replicated; every rank then takes rank 0's replica, so
+    the replicas stay equal bit for bit whatever order a card summed in."""
 
     def train_step(
         planes: torch.Tensor,
@@ -112,26 +150,39 @@ def make_train_step(net: Connect4Net, optimizer: torch.optim.SGD, weighted: bool
         prior_targets: torch.Tensor,
         value_weights: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
+        if mesh is None or len(value_targets) % mesh.world_size == 0:
+            return _step(planes, value_targets, prior_targets, value_weights, mesh)
+        metrics = _step(planes, value_targets, prior_targets, value_weights, None)
+        replicate((net, optimizer), mesh)
+        return metrics
+
+    def _step(planes, value_targets, prior_targets, value_weights, mesh):
         # storage layout: the replay window stays on the device in its
         # on-disk uint8 NCHW form (a quarter of float32); the net takes NCHW
         # as it is, so the values are those of the float NHWC form
         nchw = planes.dtype == torch.uint8
+        if mesh is not None:
+            rows = mesh.rows(len(value_targets))
+            planes, value_targets, prior_targets = planes[rows], value_targets[rows], prior_targets[rows]
+            if value_weights is not None:
+                value_weights = value_weights[rows]
         net.train()
         try:
             optimizer.zero_grad(set_to_none=True)
             total, (v_loss, p_loss, _, _) = loss_fn(
                 net, planes.float() if nchw else planes, value_targets, prior_targets,
-                value_weights if weighted else None, nchw=nchw,
+                value_weights if weighted else None, nchw=nchw, mesh=mesh,
             )
             total.backward()
+            if mesh is not None:
+                _all_reduce_grads(net, mesh)
             optimizer.step()
         finally:
             net.eval()
-        return {
-            "loss": total.detach(),
-            "value_loss": v_loss.detach(),
-            "prior_loss": p_loss.detach(),
-        }
+        losses = torch.stack([total.detach(), v_loss.detach(), p_loss.detach()])
+        if mesh is not None:
+            mesh.all_reduce(losses)
+        return dict(zip(("loss", "value_loss", "prior_loss"), losses))
 
     return train_step
 

@@ -7,8 +7,15 @@ centre heuristic for gen <= 10, else vs the net from 10 generations
 earlier). Host Python orchestrates; the games, the search and the learner
 run on ``device``.
 
+With ``config.mesh_shape = (W,)`` the loop runs data parallel on the W
+ranks of a ``torch.distributed`` group (``parallel.mesh``), every rank
+running this loop in a process of its own: each rank plays its block of
+the games (its own noise and openings), rank 0 writes the gathered
+generation, checkpoint and tables in the single-device layout, every rank
+trains on the window with the data-parallel step, and rank 0 alone
+evaluates and plays the gating match. The ranks share ``save_dir``.
+
 Differences from the JAX package, by design:
-- One device: ``config.mesh_shape`` must be None.
 - Checkpoints are torch state dicts (net + optimiser + generator state).
 - One ``torch.Generator`` on the device takes the place of the key chain,
   so noisy runs match the JAX package in distribution only.
@@ -32,6 +39,7 @@ from connect4_tpu_torch.eval.evaluators import (
     make_net_evaluator,
 )
 from connect4_tpu_torch.eval.match import MatchPlayer, play_match
+from connect4_tpu_torch.parallel.mesh import make_mesh, replicate
 from connect4_tpu_torch.training import checkpoint as ckpt
 from connect4_tpu_torch.training import replay
 from connect4_tpu_torch.training.learner import (
@@ -60,12 +68,28 @@ from connect4_tpu_torch.utils import (
 
 class TrainingLoop:
     def __init__(self, config: AlphaZeroConfig, device: DeviceLike = None):
-        config.require_single_device()
         self.config = config
-        self.device = resolve_device(device)
         self.save_dir = config.storage_config.save_dir
         self.data_dir = config.storage_config.data_dir
-        os.makedirs(self.save_dir, exist_ok=True)
+        # make_mesh raises unless a process group of exactly mesh_shape's
+        # size exists: a mesh never runs on one device quietly
+        self.mesh = None if config.mesh_shape is None else make_mesh(config.mesh_shape, device)
+        if self.mesh is None:
+            import torch.distributed as dist
+
+            if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+                raise RuntimeError(
+                    f"{dist.get_world_size()} ranks but config.mesh_shape is None: set "
+                    f"mesh_shape=({dist.get_world_size()},) to train data parallel"
+                )
+        self.device = resolve_device(device) if self.mesh is None else self.mesh.device
+        # rank 0 writes the run's files; every rank reads them
+        self.writer = self.mesh is None or self.mesh.rank == 0
+        self._log = print if self.writer else (lambda *args, **kwargs: None)
+        if self.writer:
+            os.makedirs(self.save_dir, exist_ok=True)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
         self.state = init_train_state(
             config.model_config, torch.Generator().manual_seed(config.seed), self.device
@@ -75,13 +99,25 @@ class TrainingLoop:
         restored = ckpt.restore_latest(self.save_dir, self.state, self.generator, self.device)
         if restored is not None:
             latest, self.state, self.generator = restored
-            print(f"Resuming from generation {latest}")
+            self._log(f"Resuming from generation {latest}")
             self.gen = latest + 1
         else:
             self.gen = 1
+        if self.mesh is not None:
+            # every rank restored from the shared save_dir; hold them to
+            # rank 0's generation and make every replica rank 0's
+            gen0 = int(self.mesh.broadcast(torch.tensor([self.gen], device=self.device)).item())
+            if gen0 != self.gen:
+                raise RuntimeError(
+                    f"rank {self.mesh.rank} resumes at generation {self.gen}, rank 0 at {gen0}: "
+                    "the ranks must share save_dir"
+                )
+            replicate(self.state, self.mesh)
 
         weighted = config.model_config.draw_loss_weight != 1.0
-        self.train_step = make_train_step(self.state.net, self.state.optimizer, weighted=weighted)
+        self.train_step = make_train_step(
+            self.state.net, self.state.optimizer, weighted=weighted, mesh=self.mesh
+        )
         self.forward = make_eval_fn(self.state.net)
 
         self.stats_8ply = load_table(self.save_dir, "8ply")
@@ -107,19 +143,25 @@ class TrainingLoop:
             end = until + 1 if end is None else min(end, until + 1)
         stop_file = os.path.join(self.save_dir, "STOP")
         while end is None or self.gen < end:
-            if os.path.exists(stop_file):
-                print(f"STOP file present; stopping before generation {self.gen}")
+            stop = os.path.exists(stop_file)
+            if self.mesh is not None:
+                stop = self.mesh.agree(stop)
+            if stop:
+                self._log(f"STOP file present; stopping before generation {self.gen}")
                 break
-            print("Loop: ", self.gen)
+            self._log("Loop: ", self.gen)
             self.timer = PhaseTimer()
             self._loop()
-            with self.timer.phase("evaluate"):
-                self._evaluate()
-            if self.config.n_eval > 0 and self.gen % self.config.n_eval == 0:
-                with self.timer.phase("match"):
-                    self._match()
-            self._render_plots()
+            if self.writer:
+                with self.timer.phase("evaluate"):
+                    self._evaluate()
+                if self.config.n_eval > 0 and self.gen % self.config.n_eval == 0:
+                    with self.timer.phase("match"):
+                        self._match()
+                self._render_plots()
             self.gen += 1
+        if self.mesh is not None:
+            self.mesh.barrier()  # every rank leaves with rank 0's files complete
 
     def _render_plots(self) -> None:
         """Refresh the learning-curve PNGs in ``save_dir`` every
@@ -136,12 +178,12 @@ class TrainingLoop:
 
     def _loop(self) -> None:
         timer = self.timer
-        print("Time now: {}".format(time.asctime(time.localtime())))
+        self._log("Time now: {}".format(time.asctime(time.localtime())))
         with timer.phase("generate"):
             moves = self._generate_games()
         with timer.phase("train"):
             self._train()
-        print(
+        self._log(
             timer.summary({"generate": ("moves", moves)})
             + "  ({:,.0f} sims/s)".format(
                 moves * self.config.simulations / max(timer.seconds["generate"], 1e-9)
@@ -162,32 +204,40 @@ class TrainingLoop:
             play = make_refill_play_fn(
                 self._evaluator(), cfg, batch,
                 self.config.n_training_games, self.config.sims_per_call,
-                device=self.device,
+                device=self.device, mesh=self.mesh,
             )
         else:
             play = make_stepwise_play_fn(
                 self._evaluator(), cfg, batch, self.config.sims_per_call,
-                device=self.device,
+                device=self.device, mesh=self.mesh,
             )
-        outputs = [play(self.generator)]
+        # each rank draws its own noise and openings from a generator forked
+        # off the shared one
+        generator = self.generator if self.mesh is None else self.mesh.fork_generator(self.generator)
+        outputs = [play(generator)]
 
-        n_positions = replay.append_generation(self.save_dir, self.gen, outputs)
+        if self.writer:
+            n_positions = replay.append_generation(self.save_dir, self.gen, outputs)
+        if self.mesh is not None:
+            self.mesh.barrier()  # the generation is on disk before any rank reads the window
 
         results = np.concatenate([o.result.cpu().numpy() for o in outputs])
-        print(
+        self._log(
             "Player one: wins, draws, losses:  {}, {}, {}".format(
                 int((results == O_WIN).sum()),
                 int((results == DRAW).sum()),
                 int((results == X_WIN).sum()),
             )
         )
-        print("{} positions created for training".format(n_positions))
+        if self.writer:
+            self._log("{} positions created for training".format(n_positions))
         return int(sum(int(o.mask.sum()) for o in outputs))
 
     def _train(self, epoch_orders: Optional[Sequence[Sequence[int]]] = None) -> None:
         """Train on the replay window and save the checkpoint. Each epoch
-        visits the rows in a fresh random order from the loop's generator,
-        or in ``epoch_orders[epoch]`` when orders are given."""
+        visits the rows in a fresh random order from the loop's generator
+        (under a mesh, rank 0's order on every rank), or in
+        ``epoch_orders[epoch]`` when orders are given."""
         mc = self.config.model_config
         use_ext = mc.draw_loss_weight != 1.0 or mc.value_target_mix > 0.0
         if use_ext:
@@ -207,17 +257,24 @@ class TrainingLoop:
             torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
             for a in (planes, values, policies) + ((weights,) if weights is not None else ())
         )
+        if self.mesh is not None and epoch_orders is None:
+            n = len(arrays[0])
+            epoch_orders = [
+                self.mesh.broadcast(torch.randperm(n, generator=self.generator, device=self.device))
+                for _ in range(mc.n_training_epochs)
+            ]
         # the losses stay on the device until the last epoch ends: one read
         self.train_losses = train_epochs(
             self.train_step, arrays, mc.batch_size, mc.n_training_epochs,
             self.generator, epoch_orders,
         ).cpu().tolist()
-        print(
+        self._log(
             "Training loss: {:.5f} -> {:.5f} over {} steps".format(
                 self.train_losses[0], self.train_losses[-1], len(self.train_losses)
             )
         )
-        ckpt.save_checkpoint(self.save_dir, self.gen, self.state, self.generator)
+        if self.writer:
+            ckpt.save_checkpoint(self.save_dir, self.gen, self.state, self.generator)
 
     def _benchmark_path(self, name: str) -> Optional[str]:
         path = os.path.join(self.data_dir, name)

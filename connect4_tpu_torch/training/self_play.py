@@ -12,6 +12,11 @@ benchmark workload): a fixed pool of slots plays a budget of games,
 refilling each slot the moment its game ends and narrowing the pool as it
 drains. Random numbers come from one ``torch.Generator`` on the device the
 games run on.
+
+With a ``mesh`` (``parallel.mesh.Mesh``) each rank plays its block of the
+games as an ordinary pool on its own device, with no collective inside a
+wave, and the blocks are gathered once at the end: every rank returns the
+whole output, in the layout of the same pool played in one process.
 """
 
 from __future__ import annotations
@@ -88,13 +93,29 @@ def make_stepwise_play_fn(
     batch: int,
     sims_per_call: Optional[int] = None,
     device: DeviceLike = None,
+    mesh=None,
 ):
     """Lockstep generation of ``batch`` games, one host-driven search per
     ply; the loop exits as soon as every game is finished. Returns
     ``run(generator, progress=None) -> SelfPlayOutput``; ``progress(t,
     ongoing)`` is called after each ply. ``sims_per_call`` splits each
     search into segments (``make_chunked_search_fn``), with identical
-    results."""
+    results.
+
+    With a ``mesh`` rank r plays games ``[r B/W, (r+1) B/W)`` on the mesh's
+    device and every rank returns all ``B`` games (``progress`` counts this
+    rank's); ``batch`` must divide by the world size ``W``. Lockstep games
+    are independent rows, so with noise off the output equals the one of a
+    single process."""
+    if mesh is not None:
+        from connect4_tpu_torch.parallel.mesh import gather_output
+
+        if batch % mesh.world_size:
+            raise ValueError(f"batch {batch} must divide over {mesh.world_size} ranks")
+        local = make_stepwise_play_fn(
+            eval_fn, config, batch // mesh.world_size, sims_per_call, device=mesh.device,
+        )
+        return lambda generator, progress=None: gather_output(local(generator, progress), mesh)
     dev = resolve_device(device)
     search = _search_fn(eval_fn, config, sims_per_call)
 
@@ -149,6 +170,7 @@ def make_refill_play_fn(
     sims_per_call: Optional[int] = None,
     n_blocks: Optional[int] = None,
     device: DeviceLike = None,
+    mesh=None,
 ):
     """Compact-and-refill generation: a fixed pool of ``slots`` board slots
     plays ``total_games`` complete games, resetting each slot to a fresh
@@ -166,17 +188,36 @@ def make_refill_play_fn(
     block (the contract a multi-device pool relies on). Once the game
     budget is spent and the live rows fit in half the pool, a single-block
     pool compacts them into a pool of half the width, down to 64 rows.
+
+    With a ``mesh`` of W ranks (``n_blocks`` defaults to W and must divide
+    by it), rank r plays blocks ``[r n/W, (r+1) n/W)``: ``slots/W`` slots and
+    game ids ``[r G/W, (r+1) G/W)``, as a pool of its own on the mesh's
+    device (narrowing as it drains when it holds one block), and every rank
+    returns all ``G`` games. With noise off and an evaluator that is exact
+    per row, the output equals the single-process pool's with the same
+    ``n_blocks`` bit for bit: blocks share nothing, and narrowing keeps every
+    live row's search.
     """
     if slots > total_games:
         raise ValueError("slots must be <= total_games")
     G, S = total_games, slots
     if n_blocks is None:
-        n_blocks = 1
+        n_blocks = 1 if mesh is None else mesh.world_size
     if S % n_blocks or G % n_blocks:
         raise ValueError(f"slots {S} and total_games {G} must divide into {n_blocks} blocks")
     Sb, Gb = S // n_blocks, G // n_blocks
     if Sb > Gb:
         raise ValueError("slots per block must be <= games per block")
+    if mesh is not None:
+        from connect4_tpu_torch.parallel.mesh import gather_output
+
+        W = mesh.world_size
+        if n_blocks % W:
+            raise ValueError(f"{n_blocks} blocks do not divide over {W} ranks")
+        local = make_refill_play_fn(
+            eval_fn, config, S // W, G // W, sims_per_call, n_blocks // W, device=mesh.device,
+        )
+        return lambda generator, progress=None: gather_output(local(generator, progress), mesh)
     dev = resolve_device(device)
     search = _search_fn(eval_fn, config, sims_per_call)
     can_narrow = n_blocks == 1

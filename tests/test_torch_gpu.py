@@ -1,6 +1,8 @@
 """Tests that need a CUDA card: the hand-written kernels against their
-plain PyTorch versions on the card. They skip where there is no card. This
-file imports neither JAX nor the JAX package:
+plain PyTorch versions on the card, the train step on the card against the
+CPU, the data-parallel step of two ranks sharing the card against one
+process, and the solver's build on the machine with the card. They skip
+where there is no card. This file imports neither JAX nor the JAX package:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu
 """
@@ -106,3 +108,77 @@ def test_train_step_on_card_matches_cpu():
         for (k, v), w in zip(on_cpu.net.state_dict().items(), on_card.net.state_dict().values()):
             if not k.endswith("num_batches_tracked"):
                 assert (v - w.cpu()).abs().max().item() <= tol_state, (dtype, k)
+
+
+def _dp_rank(rank, init_file, out_file, batches):
+    """One of two gloo ranks on ``cuda:0``: two data-parallel steps."""
+    import torch.distributed as dist
+
+    from connect4_tpu_torch.config import ModelConfig
+    from connect4_tpu_torch.parallel import mesh as pmesh
+    from connect4_tpu_torch.parallel.sharded import make_sharded_train_step
+    from connect4_tpu_torch.training.learner import init_train_state
+
+    pmesh.initialize_distributed("gloo", "cuda:0", init_method=f"file://{init_file}", rank=rank, world_size=2)
+    mesh = pmesh.make_mesh((2,), "cuda:0")
+    state = init_train_state(ModelConfig(net_config=NetConfig(**{**SMALL, "compute_dtype": "float32"})),
+                             torch.Generator().manual_seed(3), mesh.device)
+    step = make_sharded_train_step(state.net, state.optimizer, mesh)
+    losses = [float(step(*(t.to(mesh.device) for t in batch))["loss"]) for batch in batches]
+    torch.save((losses, {k: v.cpu() for k, v in state.net.state_dict().items()}), f"{out_file}.{rank}")
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_dp_step_on_card_matches_one_process(tmp_path):
+    """Two gloo ranks sharing ``cuda:0`` take two float32 data-parallel
+    steps at batch 256 (128 a rank): equal replicas, and within the 1e-4
+    of the train step's card-vs-CPU check of one process's steps on the
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.multiprocessing as tmp
+
+    from connect4_tpu_torch.config import ModelConfig
+    from connect4_tpu_torch.training.learner import init_train_state, make_train_step
+    from connect4_tpu_torch.utils import resolve_device
+
+    dev = resolve_device("cuda:0")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    batches = []
+    for _ in range(2):
+        planes = _positions(256, g).reshape(256, 6, 7, 3).permute(0, 3, 1, 2).to(torch.uint8).contiguous()
+        values = torch.randint(0, 3, (256,), generator=g, device="cuda").float() / 2
+        priors = torch.softmax(torch.randn((256, 7), generator=g, device="cuda"), -1)
+        batches.append((planes.cpu(), values.cpu(), priors.cpu()))
+    out = str(tmp_path / "rank")
+    tmp.spawn(_dp_rank, args=(str(tmp_path / "init"), out, batches), nprocs=2, join=True, start_method="spawn")
+    (l0, s0), (l1, s1) = (torch.load(f"{out}.{r}") for r in range(2))
+    assert l0 == l1 and all(torch.equal(s0[k], s1[k]) for k in s0)
+    one = init_train_state(ModelConfig(net_config=NetConfig(**{**SMALL, "compute_dtype": "float32"})),
+                           torch.Generator().manual_seed(3), dev)
+    step = make_train_step(one.net, one.optimizer)
+    for batch, got in zip(batches, l0):
+        assert abs(float(step(*(t.to(dev) for t in batch))["loss"]) - got) <= 1e-4
+    for k, v in one.net.state_dict().items():
+        assert (v.cpu().double() - s0[k].double()).abs().max().item() <= 1e-4, k
+
+
+@pytest.mark.gpu
+def test_solver_builds_and_solves_on_this_machine():
+    """The exact solver builds with g++ into ``build/native/`` on the
+    machine with the card and solves a known position."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs the machine with the CUDA card")
+    import os
+
+    from connect4_tpu_torch import build
+    from connect4_tpu_torch.env.host_board import HostBoard
+    from connect4_tpu_torch.native import solver
+
+    exact = solver.ExactSolver(1 << 20)
+    assert os.path.exists(build.library_path(solver.SOURCE, build.GXX))
+    board = HostBoard()
+    for m in [0, 2, 0, 3, 6, 4]:  # x holds an open three on the bottom row; o to move loses
+        board.make_move(m)
+    assert exact.outcome_to_move(board) == -1 and exact.absolute_value(board) == 0.0

@@ -307,7 +307,8 @@ def test_stats_match_jax_on_random_arrays():
 def test_config_copies_match_jax_and_reject_a_mesh(tmp_path):
     """``AlphaZeroConfig`` carries over field by field (only the default
     directories are the port's own), ``search_config`` equals the JAX one,
-    and a mesh is refused."""
+    and a mesh is accepted by the config but refused by the loop when no
+    process group of its size exists (it never runs on one device)."""
     import dataclasses
 
     from connect4_tpu.config import AlphaZeroConfig as JAlphaZeroConfig
@@ -322,12 +323,11 @@ def test_config_copies_match_jax_and_reject_a_mesh(tmp_path):
         with open(os.path.join(StorageConfig().data_dir, name), "rb") as f, \
                 open(os.path.join(theirs.storage_config.data_dir, name), "rb") as g:
             assert f.read() == g.read()
-    with pytest.raises(NotImplementedError, match="one device"):
-        AlphaZeroConfig(mesh_shape=(2,))
-    config = AlphaZeroConfig(storage_config=StorageConfig(save_dir=str(tmp_path)))
-    config.mesh_shape = (4,)
-    with pytest.raises(NotImplementedError, match="one device"):
+    assert AlphaZeroConfig(mesh_shape=(2,)).mesh_shape == (2,)
+    config = AlphaZeroConfig(storage_config=StorageConfig(save_dir=str(tmp_path)), mesh_shape=(4,))
+    with pytest.raises(RuntimeError, match="no torch.distributed process group"):
         TrainingLoop(config, device="cpu")
+    assert not os.listdir(tmp_path)
 
 
 def _tiny_config(save_dir, **kw):
