@@ -55,7 +55,19 @@ fatal on failure:
    of each generation while its plain version was never entered;
 9. play gen-161 against the centre heuristic (64 simulations, 2-ply starts,
    both colours): a return under 0.5 is a fault;
-10. [dp] data parallelism with two ranks sharing the card through gloo
+10. [scripts] the run and measurement tools of ``connect4_tpu_torch.scripts``
+    at full width (``SCRIPTS``): ``reevaluate_run`` over phase 8's two
+    generations, each row equal to the one the loop wrote within
+    ``TOL_REEVALUATE``, and generation 2's rows on a cut of the sets equal
+    to the tool's on the CPU within ``TOL_REEVALUATE_CPU``; ``matches`` between them; ``evaluate_posn --search``
+    with gen-161 at 800 simulations; ``selfplay_breakdown`` at its defaults
+    (256 slots, 800 simulations, K=8) for two waves, with the card's busy
+    share; ``profile_search`` with its trace; ``sweep_search_batch``;
+    ``descent_depth_profile``; one epoch of ``verify_supervised``;
+    ``ship_run_artifacts``. The tools of a folded bf16 net must launch the
+    kernel, every batch they launch must have been compared, the plain
+    tower is never entered;
+11. [dp] data parallelism with two ranks sharing the card through gloo
     (spawned processes on ``cuda:0``; a rank that fails fails the run):
     sharded refill self-play of 256 games in 256 slots with gen-161 (K=8,
     64 simulations, noise on), whose games must finish, replay legally and
@@ -68,15 +80,15 @@ fatal on failure:
     ``mesh_shape=(2,)`` at the depth of phase 8 (no match), then a resumed
     one. Each rank's launches by batch go through the [shapes] check, and
     neither rank may enter the plain tower;
-11. a one-rank NCCL group takes one data-parallel step, bit for bit the
+12. a one-rank NCCL group takes one data-parallel step, bit for bit the
     single-process step;
-12. [host] ``HostMCTS`` and ``GridSearch`` choose the tactic table's moves,
+13. [host] ``HostMCTS`` and ``GridSearch`` choose the tactic table's moves,
     and the batched search on the card agrees with ``HostMCTS``; the exact
     solver builds with g++ and agrees with exhaustive minimax on 300
     late-game positions of seeded random playouts;
-13. [supervisor] the supervisor runs ``cli training --device cuda
+14. [supervisor] the supervisor runs ``cli training --device cuda
     --generations 1`` on a tiny config; the child exits 0 with a checkpoint;
-14. print the ``kernels`` JSON line, the card's name and power limit, and
+15. print the ``kernels`` JSON line, the card's name and power limit, and
     last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
@@ -86,6 +98,7 @@ package is not beside this script. A copy of every number goes to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -94,10 +107,6 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
 
 # stated tolerances, kernel vs plain version (same rounding points and the
 # same order of summation; with the tensor core's accumulate emulated the
@@ -246,18 +255,6 @@ def cudnn_tower(folded, config):
     return run
 
 
-def tower_bound(config, boards: int):
-    """(bound_ms, bound_by, flops, bytes) of the tower on ``boards`` boards:
-    every MAC of the 13 convs on 42 rows per board, and each input, weight
-    and output byte moved once."""
-    f, c, n = config.filters, config.channels, config.n_residuals
-    flops = boards * 42 * 2 * (9 * c * f + 2 * n * 9 * f * f)
-    weight_bytes = 2 * (9 * c * f + f + 2 * n * (9 * f * f + f))
-    nbytes = boards * 42 * c * 4 + weight_bytes + boards * 42 * f * 2
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
-
-
 def replay_games(out) -> int:
     """Replay every recorded game on the host board: legal moves, the
     recorded pre-move planes, the recorded result. Returns the move count."""
@@ -361,9 +358,10 @@ def time_train_step(dev, generator):
     return out
 
 
-def drive_generations(dev, shapes):
-    """Phase 8: two generations of ``TrainingLoop`` at full width, the
-    second in a new loop that resumes from the first one's checkpoint."""
+def drive_generations(dev, shapes, save_dir):
+    """Phase 8: two generations of ``TrainingLoop`` at full width in
+    ``save_dir``, the second in a new loop that resumes from the first
+    one's checkpoint. The run stays for the [scripts] phase."""
     import numpy as np
     import torch
 
@@ -375,12 +373,6 @@ def drive_generations(dev, shapes):
     from connect4_tpu_torch.training.tables import load_table
 
     G = GENERATION
-    plain_calls = []
-    tower_plain = tower.tower_plain
-
-    def watched_plain(*args, **kwargs):
-        plain_calls.append(1)
-        return tower_plain(*args, **kwargs)
 
     def counting(method, counts, name):
         def run(*args, **kwargs):
@@ -391,7 +383,7 @@ def drive_generations(dev, shapes):
         return run
 
     generations = []
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as save_dir:
+    with watching_plain(tower) as plain_calls:
         config = AlphaZeroConfig(
             model_config=ModelConfig(
                 net_config=NetConfig(**G["net"]),
@@ -401,73 +393,88 @@ def drive_generations(dev, shapes):
             simulations=G["simulations"], parallel_sims=G["parallel_sims"],
             n_training_games=G["games"], selfplay_batch=G["slots"], n_eval=1, seed=0,
         )
-        tower.tower_plain = watched_plain
-        try:
-            previous = None
-            for gen in (1, 2):
-                loop = TrainingLoop(config, device=dev)  # generation 2: a new loop, resumed
-                if loop.gen != gen:
-                    fail(f"[generation] the loop starts at generation {loop.gen}, expected {gen}")
-                before = {k: v.clone() for k, v in loop.state.net.state_dict().items()}
-                if previous is not None:
-                    for k, v in previous.items():
-                        if not torch.equal(v, before[k]):
-                            fail(f"[generation] resumed {k} differs from the saved one")
-                counts = {"selfplay": 0, "match": 0}
-                loop._generate_games = counting(loop._generate_games, counts, "selfplay")
-                loop._match = counting(loop._match, counts, "match")
-                tower.run_tower.launches = 0
-                t0 = time.perf_counter()
-                loop.run(generations=1)
-                torch.cuda.synchronize()
-                seconds = time.perf_counter() - t0
-                previous = {k: v.clone() for k, v in loop.state.net.state_dict().items()}
-                changed = [k for k in before if not torch.equal(before[k], previous[k])]
-                unchanged = [k for k in before if k not in changed and not k.endswith("num_batches_tracked")]
-                losses = loop.train_losses
-                if not losses or not all(np.isfinite(losses)):
-                    fail(f"[generation {gen}] training losses not finite: {losses}")
-                if unchanged:
-                    fail(f"[generation {gen}] training left these unchanged: {unchanged}")
-                if not all(bool(torch.isfinite(v).all()) for v in previous.values()):
-                    fail(f"[generation {gen}] a parameter or statistic is not finite")
-                if counts["selfplay"] == 0 or counts["match"] == 0:
-                    fail(f"[generation {gen}] tower kernel launches {counts}: a phase never launched it")
-                if plain_calls:
-                    fail(f"[generation {gen}] the plain tower was entered {len(plain_calls)} times on the card")
-                planes, values, _ = replay.load_window(save_dir, gen)
-                if ckpt.latest_generation(save_dir) != gen or not os.path.exists(
-                        os.path.join(save_dir, str(gen), "ckpt", ckpt.FILE_NAME)):
-                    fail(f"[generation {gen}] no checkpoint")
-                match = load_table(save_dir, "match_results")[-1]
-                rows8, rows7 = load_table(save_dir, "8ply"), load_table(save_dir, "7ply")
-                if len(rows8) != gen or len(rows7) != gen:
-                    fail(f"[generation {gen}] benchmark tables hold {len(rows8)} and {len(rows7)} rows")
-                with np.load(os.path.join(save_dir, str(gen), "games.npz")) as games:
-                    moves = int(games["mask"].sum())
-                    if not (games["result"] != 0).all() or games["result"].shape[0] != G["games"]:
-                        fail(f"[generation {gen}] not every game finished")
-                phases = dict(loop.timer.seconds)
-                info = {
-                    "generation": gen, "seconds": seconds, "phases": phases, "moves": moves,
-                    "moves_per_s": moves / phases["generate"], "positions": int(len(values)),
-                    "train_steps": len(losses), "first_loss": losses[0], "last_loss": losses[-1],
-                    "match": match, "launches": dict(counts),
-                    "launches_by_boards": shapes.take(f"generation {gen}"),
-                    "8ply": {k: rows8[-1][k] for k in ("Average loss", "Accuracy")},
-                    "7ply": {k: rows7[-1][k] for k in ("Average loss", "Accuracy", "prior Accuracy")},
-                }
-                generations.append(info)
-                log(f"[generation] {gen}{' (resumed in a new loop)' if gen == 2 else ''}: {seconds:.2f} s = "
-                    + ", ".join(f"{k} {v:.2f}" for k, v in phases.items())
-                    + f"; {moves} moves, {info['moves_per_s']:.1f} moves/s; {len(values)} positions, "
-                    f"{len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; match vs centre "
-                    f"{match['wins']}-{match['draws']}-{match['losses']} (return {match['return']:.3f}); "
-                    f"tower kernel launches: self-play {counts['selfplay']}, match {counts['match']}; "
-                    f"plain tower entered {len(plain_calls)} times")
-        finally:
-            tower.tower_plain = tower_plain
+        previous = None
+        for gen in (1, 2):
+            loop = TrainingLoop(config, device=dev)  # generation 2: a new loop, resumed
+            if loop.gen != gen:
+                fail(f"[generation] the loop starts at generation {loop.gen}, expected {gen}")
+            before = {k: v.clone() for k, v in loop.state.net.state_dict().items()}
+            if previous is not None:
+                for k, v in previous.items():
+                    if not torch.equal(v, before[k]):
+                        fail(f"[generation] resumed {k} differs from the saved one")
+            counts = {"selfplay": 0, "match": 0}
+            loop._generate_games = counting(loop._generate_games, counts, "selfplay")
+            loop._match = counting(loop._match, counts, "match")
+            tower.run_tower.launches = 0
+            t0 = time.perf_counter()
+            loop.run(generations=1)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            previous = {k: v.clone() for k, v in loop.state.net.state_dict().items()}
+            changed = [k for k in before if not torch.equal(before[k], previous[k])]
+            unchanged = [k for k in before if k not in changed and not k.endswith("num_batches_tracked")]
+            losses = loop.train_losses
+            if not losses or not all(np.isfinite(losses)):
+                fail(f"[generation {gen}] training losses not finite: {losses}")
+            if unchanged:
+                fail(f"[generation {gen}] training left these unchanged: {unchanged}")
+            if not all(bool(torch.isfinite(v).all()) for v in previous.values()):
+                fail(f"[generation {gen}] a parameter or statistic is not finite")
+            if counts["selfplay"] == 0 or counts["match"] == 0:
+                fail(f"[generation {gen}] tower kernel launches {counts}: a phase never launched it")
+            if plain_calls:
+                fail(f"[generation {gen}] the plain tower was entered {len(plain_calls)} times on the card")
+            planes, values, _ = replay.load_window(save_dir, gen)
+            if ckpt.latest_generation(save_dir) != gen or not os.path.exists(
+                    os.path.join(save_dir, str(gen), "ckpt", ckpt.FILE_NAME)):
+                fail(f"[generation {gen}] no checkpoint")
+            match = load_table(save_dir, "match_results")[-1]
+            rows8, rows7 = load_table(save_dir, "8ply"), load_table(save_dir, "7ply")
+            if len(rows8) != gen or len(rows7) != gen:
+                fail(f"[generation {gen}] benchmark tables hold {len(rows8)} and {len(rows7)} rows")
+            with np.load(os.path.join(save_dir, str(gen), "games.npz")) as games:
+                moves = int(games["mask"].sum())
+                if not (games["result"] != 0).all() or games["result"].shape[0] != G["games"]:
+                    fail(f"[generation {gen}] not every game finished")
+            phases = dict(loop.timer.seconds)
+            info = {
+                "generation": gen, "seconds": seconds, "phases": phases, "moves": moves,
+                "moves_per_s": moves / phases["generate"], "positions": int(len(values)),
+                "train_steps": len(losses), "first_loss": losses[0], "last_loss": losses[-1],
+                "match": match, "launches": dict(counts),
+                "launches_by_boards": shapes.take(f"generation {gen}"),
+                "8ply": {k: rows8[-1][k] for k in ("Average loss", "Accuracy")},
+                "7ply": {k: rows7[-1][k] for k in ("Average loss", "Accuracy", "prior Accuracy")},
+            }
+            generations.append(info)
+            log(f"[generation] {gen}{' (resumed in a new loop)' if gen == 2 else ''}: {seconds:.2f} s = "
+                + ", ".join(f"{k} {v:.2f}" for k, v in phases.items())
+                + f"; {moves} moves, {info['moves_per_s']:.1f} moves/s; {len(values)} positions, "
+                f"{len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; match vs centre "
+                f"{match['wins']}-{match['draws']}-{match['losses']} (return {match['return']:.3f}); "
+                f"tower kernel launches: self-play {counts['selfplay']}, match {counts['match']}; "
+                f"plain tower entered {len(plain_calls)} times")
     return {"config": G, "generations": generations}
+
+
+@contextlib.contextmanager
+def watching_plain(tower):
+    """Count the entries into the plain tower while the block runs, by
+    standing in front of ``tower.tower_plain``: on the card the paths must
+    never enter it. Yields the list that grows by one an entry."""
+    calls = []
+    plain = tower.tower_plain
+
+    def watched(*args, **kwargs):
+        calls.append(1)
+        return plain(*args, **kwargs)
+
+    tower.tower_plain = watched
+    try:
+        yield calls
+    finally:
+        tower.tower_plain = plain
 
 
 def gen161_match(net, dev, shapes):
@@ -494,6 +501,259 @@ def gen161_match(net, dev, shapes):
     if result["return"] < 0.5 or result["launches"] == 0:
         fail(f"gen-161 does not beat the centre heuristic through the kernel: {result}")
     return result
+
+
+# ---------------------------------------------------------------------------
+# [scripts]: the run and measurement tools of ``connect4_tpu_torch.scripts``
+
+# Their sizes on the card. Every batch the tools launch the tower at is in
+# COMPARE_BOARDS: a match of 49 two-ply starts at K=8 (49, 392), one board
+# (1), 256 slots at K=8 (256, 2048), a batch of 512 at K=8 (512, 4096), and
+# pools of 64 ... 256 rows at K=8.
+SCRIPTS = dict(
+    match_sims=64, match_k=8, posn_sims=800, breakdown_waves=2,
+    search=dict(batch=512, sims=64, k=8),
+    sweep=dict(batches=(64, 128), sims=64, k=8, sims_per_call=64),
+    descent=dict(sims=400, k=8, sims_per_call=200, rows=256, pool_rows=(64, 128, 256)),
+    supervised_epochs=1,
+)
+POSITION = ". . . . . . .\n. . . . . . .\n. . . . . . .\n. . . x . . .\n. . o o x . .\n. x o o x o .\n"
+TOL_REEVALUATE = 1e-5  # a re-evaluated row against the one the loop wrote
+# ``reevaluate_run`` of generation 2 on the card against the same tool on
+# the CPU, over the first REEVALUATE_CPU_ROWS positions of each set: the
+# bf16 net rounds each conv output on both, cuDNN and the CPU sum in
+# different orders. Held: every number of a row but the ``correct`` counts
+# (which the accuracies carry), and the counts' totals exactly. The first
+# reading on the H100 was 1.62e-3 (the 8ply accuracies 2 positions apart).
+REEVALUATE_CPU_ROWS = 8192
+TOL_REEVALUATE_CPU = 1e-2
+
+
+def rows_max_diff(a: dict, b: dict) -> float:
+    """The largest difference between two metric rows' numbers (the
+    ``correct`` column's counts included); inf when their columns differ."""
+    keys = set(a) - {"generation"}
+    if keys != set(b) - {"generation"}:
+        return float("inf")
+    worst = 0.0
+    for k in keys:
+        x, y = a[k], b[k]
+        if isinstance(x, dict):
+            if set(x) != set(y):
+                return float("inf")
+            worst = max([worst] + [abs(p - q) for key in x for p, q in zip(x[key], y[key])])
+        else:
+            worst = max(worst, abs(x - y))
+    return worst
+
+
+def stats_max_diff(a: dict, b: dict) -> float:
+    """The largest difference between two metric rows' numbers, leaving
+    out the ``correct`` counts; inf when the columns or the counts' totals
+    differ."""
+    if set(a) != set(b):
+        return float("inf")
+    if "correct" in a and {k: v[0] for k, v in a["correct"].items()} != {k: v[0] for k, v in b["correct"].items()}:
+        return float("inf")
+    return max(abs(a[k] - b[k]) for k in a if k not in ("correct", "generation"))
+
+
+def reevaluate_card_and_cpu(reevaluate_run, run_dir, data_dir, tmp, dev):
+    """``reevaluate_run`` of the last generation (stride 2 of two) on the
+    card and on the CPU, over a cut of each set; returns the largest
+    difference between their rows and the rows."""
+    import numpy as np
+
+    cut = os.path.join(tmp, "sets_cut")
+    os.makedirs(cut)
+    for name in ("connect4dataset_8ply.npz", "connect4dataset_7ply.npz"):
+        with np.load(os.path.join(data_dir, name)) as full:
+            np.savez(os.path.join(cut, name), **{k: full[k][:REEVALUATE_CPU_ROWS] for k in full.files})
+    rows = {where: reevaluate_run.reevaluate(run_dir, cut, os.path.join(tmp, f"cut_{where}"), stride=2,
+                                             device=device)
+            for where, device in (("card", dev), ("cpu", "cpu"))}
+    diff = max(stats_max_diff(a, b) for table in ("8ply", "7ply")
+               for a, b in zip(rows["card"][table], rows["cpu"][table]))
+    return diff, rows
+
+
+def scripts_phase(dev, shapes, run_dir):
+    """Phase 10, [scripts]: every tool that computes, at full width on the
+    card through its plain function: ``reevaluate_run`` over the two phase-8
+    generations (each row equal to the loop's own within TOL_REEVALUATE, and
+    generation 2's rows on a cut of the sets equal to the CPU's within
+    TOL_REEVALUATE_CPU), ``matches`` between them, ``evaluate_posn --search`` with gen-161 at 800
+    simulations, ``selfplay_breakdown`` at its defaults, ``profile_search``
+    with its trace, ``sweep_search_batch``, ``descent_depth_profile``,
+    ``verify_supervised`` (one epoch) and ``ship_run_artifacts``. Each tool
+    is driven with the kernel's count set to 0 and read after it; a tool of
+    a folded bf16 net must launch the kernel, the others (the learner's
+    unfolded net, through cuDNN) must not, the plain tower is never entered
+    and every batch launched must have been compared."""
+    import numpy as np
+    import torch
+
+    from connect4_tpu_torch.config import MCTSConfig, StorageConfig
+    from connect4_tpu_torch.env.core import initial_state
+    from connect4_tpu_torch.eval.evaluators import make_net_evaluator
+    from connect4_tpu_torch.models import tower
+    from connect4_tpu_torch.models.convert import load_example_net
+    from connect4_tpu_torch.scripts import (
+        _common,
+        descent_depth_profile,
+        evaluate_posn,
+        matches,
+        profile_search,
+        reevaluate_run,
+        selfplay_breakdown,
+        ship_run_artifacts,
+        sweep_search_batch,
+        verify_supervised,
+    )
+    from connect4_tpu_torch.training import checkpoint as ckpt
+    from connect4_tpu_torch.training.tables import load_table
+
+    P = SCRIPTS
+    data_dir = StorageConfig().data_dir
+    out, launches, by_boards = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scripts_") as tmp, watching_plain(tower) as plain_calls:
+        position = os.path.join(tmp, "position.txt")
+        with open(position, "w") as fh:
+            fh.write(POSITION)
+        fresh = make_net_evaluator(_common.fresh_net(dev))
+        gen161 = make_net_evaluator(load_example_net(device=dev))
+        tools = [
+            ("reevaluate_run", False, lambda: reevaluate_run.reevaluate(
+                run_dir, data_dir, os.path.join(tmp, "reevaluated"), device=dev)),
+            ("matches", True, lambda: matches.matches(
+                run_dir, [1, 2], P["match_sims"], plies=2, parallel_sims=P["match_k"], device=dev)),
+            ("evaluate_posn", True, lambda: evaluate_posn.evaluate_posn(
+                evaluate_posn.parse_position(position), evaluate_posn.load_player(None, None, P["posn_sims"], dev),
+                True, dev)),
+            ("selfplay_breakdown", True, lambda: selfplay_breakdown.run(waves=P["breakdown_waves"], device=dev)),
+            ("profile_search", True, lambda: profile_search.profile_search(
+                fresh, initial_state((P["search"]["batch"],), device=dev),
+                MCTSConfig(simulations=P["search"]["sims"], parallel_sims=P["search"]["k"]),
+                os.path.join(tmp, "trace"))),
+            ("sweep_search_batch", True, lambda: sweep_search_batch.sweep(
+                fresh, MCTSConfig(simulations=P["sweep"]["sims"], root_dirichlet_alpha=0.3,
+                                  root_exploration_fraction=0.25, num_sampling_moves=6),
+                P["sweep"]["batches"], [P["sweep"]["k"]], P["sweep"]["sims_per_call"], dev)),
+            ("descent_depth_profile", True, lambda: descent_depth_profile.run(
+                gen161, MCTSConfig(simulations=P["descent"]["sims"], root_dirichlet_alpha=0.3,
+                                   root_exploration_fraction=0.25, num_sampling_moves=6,
+                                   parallel_sims=P["descent"]["k"]),
+                P["descent"]["sims_per_call"], P["descent"]["rows"], dev, P["descent"]["pool_rows"])),
+            ("verify_supervised", False, lambda: verify_supervised.verify_supervised(
+                data_dir, epochs=P["supervised_epochs"], device=dev)),
+        ]
+        config_file = os.path.join(tmp, "config.py")
+        with open(config_file, "w") as fh:
+            fh.write("from connect4_tpu_torch.config import *\n"
+                     f"config = AlphaZeroConfig(storage_config=StorageConfig(save_dir={run_dir!r}))\n")
+        tools.append(("ship_run_artifacts", False, lambda: ship_run_artifacts.ship(
+            config_file, os.path.join(tmp, "shipped"), device=dev)))
+        seconds = {}
+        for name, launches_kernel, drive in tools:
+            torch.cuda.synchronize()
+            tower.run_tower.launches = 0
+            t0 = time.perf_counter()
+            out[name] = drive()
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = tower.run_tower.launches
+            for b, n in shapes.take(f"scripts {name}").items():
+                by_boards[b] = by_boards.get(b, 0) + n
+            if launches_kernel != (launches[name] > 0):
+                fail(f"[scripts] {name} launched the tower kernel {launches[name]} times")
+            if plain_calls:
+                fail(f"[scripts] {name}: the plain tower was entered {len(plain_calls)} times on the card")
+        # the tool's tables as written (JSON), against the loop's
+        reeval_diff = max(rows_max_diff(mine, loop)
+                          for table in ("8ply", "7ply")
+                          for mine, loop in zip(load_table(os.path.join(tmp, "reevaluated"), table),
+                                                load_table(run_dir, table)))
+        t0 = time.perf_counter()
+        cpu_diff, cpu_rows = reevaluate_card_and_cpu(reevaluate_run, run_dir, data_dir, tmp, dev)
+        cpu_s = time.perf_counter() - t0
+        shipped = load_example_net(out["ship_run_artifacts"]["npz"], device=dev)
+        saved = ckpt.restore_checkpoint(run_dir, 2, device=dev)[0].net
+        shipped_equal = all(torch.equal(v, shipped.state_dict()[k]) for k, v in saved.state_dict().items()
+                            if not k.endswith("num_batches_tracked"))
+
+    # --- checks and lines ----------------------------------------------------
+    problems = []
+    reeval = out["reevaluate_run"]
+    log(f"[scripts] reevaluate_run: {seconds['reevaluate_run']:.1f} s, generations {reeval['generations']} on "
+        f"{reeval['sets']} positions; 8ply MSE {[round(r['Average loss'], 5) for r in reeval['8ply']]}, 7ply "
+        f"prior accuracy {[round(r['prior Accuracy'], 5) for r in reeval['7ply']]}; largest difference from the "
+        f"loop's own rows {reeval_diff:.3g} (limit {TOL_REEVALUATE}); curves drawn: {reeval['curves']}")
+    if len(reeval["8ply"]) != 2 or not reeval_diff <= TOL_REEVALUATE:
+        problems.append(f"reevaluate_run differs from the loop's rows by {reeval_diff}")
+    log(f"[scripts] reevaluate_run card against CPU: {cpu_s:.1f} s, generation {cpu_rows['cpu']['generations']} on "
+        f"{cpu_rows['cpu']['sets']} positions; 8ply MSE card {cpu_rows['card']['8ply'][0]['Average loss']:.6f} "
+        f"CPU {cpu_rows['cpu']['8ply'][0]['Average loss']:.6f}, 8ply accuracy card "
+        f"{cpu_rows['card']['8ply'][0]['Accuracy']:.6f} CPU {cpu_rows['cpu']['8ply'][0]['Accuracy']:.6f}; largest "
+        f"difference {cpu_diff:.3g} (limit {TOL_REEVALUATE_CPU})")
+    if not cpu_diff <= TOL_REEVALUATE_CPU:
+        problems.append(f"reevaluate_run on the card differs from the CPU's rows by {cpu_diff}")
+    m = out["matches"]
+    log(f"[scripts] matches: {seconds['matches']:.1f} s, generation 1 vs 2 at {m['simulations']} sims, K="
+        f"{m['parallel_sims']}, 2-ply starts both colours: return {m['returns']['1-2']:.3f}; launches "
+        f"{launches['matches']}")
+    posn = out["evaluate_posn"]
+    log(f"[scripts] evaluate_posn --search: {seconds['evaluate_posn']:.1f} s, gen-161 at {posn['simulations']} "
+        f"sims: value {posn['value']:.4f}, move {posn['move']}, search value {posn['search_value']:.4f}, root "
+        f"visits {posn['root_visits']}; launches {launches['evaluate_posn']}")
+    if sum(posn["root_visits"]) != posn["simulations"] or not 0.0 <= posn["value"] <= 1.0:
+        problems.append(f"evaluate_posn: {posn}")
+    b = out["selfplay_breakdown"]
+    log(f"[scripts] selfplay_breakdown: {seconds['selfplay_breakdown']:.1f} s, {b['slots']} slots ({b['live_rows']} "
+        f"live), {b['simulations']} sims, K={b['parallel_sims']}: blocking wave {b['blocking_wave_ms']:.1f} ms = "
+        f"init {b['init_ms']:.1f} + segments {b['segments_ms']:.1f} ({[round(t, 1) for t in b['segment_ms']]}) + "
+        f"finish {b['finish_ms']:.1f}; without per-part syncs {b['unsynced_wave_ms']:.1f} ms; bare forward at "
+        f"B={b['eval_batch']} {b['eval_ms']:.3f} ms (est. eval share {b['eval_share']:.1%}); card busy "
+        f"{b['device_busy_ms']:.1f} ms of a traced segment of {b['traced_segment_ms']:.1f} ms = "
+        f"{b['device_busy_share']:.1%} ({b['device_busy_share_of_untraced']:.1%} of an untraced segment); "
+        f"{b['sims_per_s']:,.0f} sims/s = {b['achieved_tflops']:.3f} TFLOP/s, {b['mfu']:.3%} of the bf16 peak; "
+        f"bare forward {b['eval_tflops']:.1f} TFLOP/s ({b['eval_mfu']:.1%}); launches {launches['selfplay_breakdown']}")
+    ps = out["profile_search"]
+    log(f"[scripts] profile_search: {seconds['profile_search']:.1f} s (trace read in {ps['read_s']:.1f} s, "
+        f"{ps['events']} events), batch {ps['batch']}, {ps['simulations']} sims, K={ps['parallel_sims']}: "
+        f"{ps['steady_s']:.3f} s traced, {ps['sims_per_s']:,.0f} sims/s, card busy {ps['device_busy_ms']} ms; "
+        f"top {ps['top_ops_of']} ops: " + "; ".join(f"{o['name'][:60]} {o['ms']:.2f} ms x{o['count']}"
+                                                     for o in ps["top_ops"][:5]))
+    if ps["top_ops_of"] != "device" or not os.path.basename(ps["trace"]):
+        problems.append("profile_search: the trace holds no work of the card")
+    for r in out["sweep_search_batch"]:
+        log(f"[scripts] sweep_search_batch: batch {r['batch']} K={r['parallel_sims']}, "
+            f"{P['sweep']['sims']} sims: first {r['first_s']:.2f} s, steady {r['steady_s']:.3f} s, "
+            f"{r['sims_per_s']:,.0f} sims/s")
+    d = out["descent_depth_profile"]
+    log(f"[scripts] descent_depth_profile: {seconds['descent_depth_profile']:.1f} s, gen-161, {d['simulations']} "
+        f"sims, K={d['parallel_sims']}: depth (mean/p95/max) by ply after the last segment "
+        + ", ".join(f"{r['ply']}: {r['final'][0]:.1f}/{r['final'][1]:.0f}/{r['final'][2]}" for r in d["depth_by_age"])
+        + "; segment ms by rows " + ", ".join(f"{r['rows']}: {r['ms']:.1f}" for r in d["segment_by_rows"]))
+    v = out["verify_supervised"]
+    e = v["epochs"][-1]
+    log(f"[scripts] verify_supervised: {seconds['verify_supervised']:.1f} s, {v['positions']} positions, "
+        f"{e['steps']} steps at batch {v['batch_size']} in {e['seconds']:.2f} s, losses {e['losses'][:1]} -> "
+        f"{e['losses'][-1:]}, sample accuracy {e['stats']['Accuracy']:.4f}")
+    if not e["losses"] or not np.isfinite(e["losses"]).all():
+        problems.append(f"verify_supervised: losses not finite {e['losses']}")
+    log(f"[scripts] ship_run_artifacts: {seconds['ship_run_artifacts']:.1f} s, generation "
+        f"{out['ship_run_artifacts']['generation']} shipped, loads bit for bit: {shipped_equal}")
+    if not shipped_equal:
+        problems.append("ship_run_artifacts: the shipped net differs from the checkpoint")
+    finite = [b["blocking_wave_ms"], b["unsynced_wave_ms"], b["eval_ms"], b["device_busy_share"], ps["sims_per_s"]]
+    if not np.isfinite(finite).all() or not 0 < b["device_busy_share"] <= 1:
+        problems.append(f"selfplay_breakdown or profile_search: {finite}")
+    if problems:
+        fail("[scripts] " + "; ".join(problems))
+    return {"config": SCRIPTS, "seconds": seconds, "launches": launches, "launches_by_boards": by_boards,
+            "reevaluate_max_diff": reeval_diff, "reevaluate_cpu_max_diff": cpu_diff, "results": {
+                k: r for k, r in out.items() if k not in ("reevaluate_run",)} | {
+                "reevaluate_run": {k: reeval[k] for k in ("generations", "sets", "curves")}}}
 
 
 # ---------------------------------------------------------------------------
@@ -731,7 +991,7 @@ def join_ranks(ranks, seconds: float) -> None:
 
 
 def drive_dp(dev):
-    """Phase 10, [dp]: two ranks on the one card (gloo, spawned), checked."""
+    """Phase 11, [dp]: two ranks on the one card (gloo, spawned), checked."""
     import numpy as np
     import torch
     import torch.multiprocessing as tmp
@@ -827,7 +1087,7 @@ def drive_dp(dev):
 
 
 def nccl_one_rank(dev):
-    """Phase 11: a one-rank NCCL group takes one data-parallel step, which
+    """Phase 12: a one-rank NCCL group takes one data-parallel step, which
     must equal the single-process step bit for bit (with cuDNN's
     deterministic algorithms, so that two runs of one step agree)."""
     import torch
@@ -876,7 +1136,7 @@ TACTICS = [
 
 
 def host_phase(dev):
-    """Phase 12, [host]: the reference searches choose the tactic table's
+    """Phase 13, [host]: the reference searches choose the tactic table's
     moves and the batched search on the card agrees with the host MCTS;
     the solver builds with g++ and agrees with exhaustive minimax on
     late-game positions of seeded random playouts."""
@@ -949,7 +1209,7 @@ def host_phase(dev):
 
 
 def supervisor_phase():
-    """Phase 13, [supervisor]: the watchdog runs one generation of the
+    """Phase 14, [supervisor]: the watchdog runs one generation of the
     training CLI on the card (a tiny float32 net, 8 games, no match) and the
     child's checkpoint exists."""
     from connect4_tpu_torch.training import checkpoint as ckpt
@@ -1095,7 +1355,7 @@ def main() -> int:
             x2d = (to_planes(random_positions(b, gen, dev)).permute(0, 2, 3, 1)
                    .reshape(b * 42, config.channels).float().contiguous())
             nhwc = x2d.reshape(b, 6, 7, config.channels)
-            bound_ms, bound_by, flops, nbytes = tower_bound(config, b)
+            bound_ms, bound_by, flops, nbytes = tower.tower_bound(config, b)
             t = {
                 "ms": timed_ms(lambda: tower.run_tower(packed, x2d)),
                 "plain_ms": timed_ms(lambda: tower.tower_plain(packed, x2d), iters=5),
@@ -1185,39 +1445,47 @@ def main() -> int:
     train_gen = make_generator(SMOKE["seed"] + 1, dev)
     report["train_check"] = check_train_step(dev, train_gen)
     report["train_times"] = time_train_step(dev, train_gen)
-    report["generation"] = drive_generations(dev, shapes)
-    generation_launches = sum(
-        g["launches"]["selfplay"] + g["launches"]["match"] for g in report["generation"]["generations"])
-    generation_shapes = {}
-    for g in report["generation"]["generations"]:
-        for b, n in g["launches_by_boards"].items():
-            generation_shapes[b] = generation_shapes.get(b, 0) + n
-    if sum(generation_shapes.values()) != generation_launches:
-        fail(f"launches by batch {generation_shapes} do not add up to {generation_launches}")
-    report_boards = max(generation_shapes, key=generation_shapes.get)
-    if report_boards not in times:
-        fail(f"most launches of the generations are at B={report_boards}, which was not timed: "
-             f"{generation_shapes}")
-    report["match"] = gen161_match(net, dev, shapes)
+    # the phase-8 run stays for the [scripts] phase, which re-evaluates it
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as run_dir:
+        report["generation"] = drive_generations(dev, shapes, run_dir)
+        generation_launches = sum(
+            g["launches"]["selfplay"] + g["launches"]["match"] for g in report["generation"]["generations"])
+        generation_shapes = {}
+        for g in report["generation"]["generations"]:
+            for b, n in g["launches_by_boards"].items():
+                generation_shapes[b] = generation_shapes.get(b, 0) + n
+        if sum(generation_shapes.values()) != generation_launches:
+            fail(f"launches by batch {generation_shapes} do not add up to {generation_launches}")
+        report_boards = max(generation_shapes, key=generation_shapes.get)
+        if report_boards not in times:
+            fail(f"most launches of the generations are at B={report_boards}, which was not timed: "
+                 f"{generation_shapes}")
+        report["match"] = gen161_match(net, dev, shapes)
 
-    # --- 10.-13. data parallelism, the host search and solver, the supervisor --
-    seconds = {}
-    for name, phase in (("dp", lambda: drive_dp(dev)), ("nccl", lambda: nccl_one_rank(dev)),
-                        ("host", lambda: host_phase(dev)), ("supervisor", supervisor_phase)):
-        t0 = time.perf_counter()
-        report[name] = phase()
-        seconds[name] = time.perf_counter() - t0
+        # --- 10.-14. the tools, data parallelism, the host search and solver,
+        # the supervisor ------------------------------------------------------
+        seconds = {}
+        for name, phase in (("scripts", lambda: scripts_phase(dev, shapes, run_dir)),
+                            ("dp", lambda: drive_dp(dev)), ("nccl", lambda: nccl_one_rank(dev)),
+                            ("host", lambda: host_phase(dev)), ("supervisor", supervisor_phase)):
+            t0 = time.perf_counter()
+            report[name] = phase()
+            seconds[name] = time.perf_counter() - t0
     report["phase_seconds"] = seconds
     log("[phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
         + f"; together {sum(seconds.values()):.1f} s")
     dp_launches = sum(report["dp"]["launches"].values())
-    for b, n in report["dp"]["launches_by_boards"].items():
-        generation_shapes[b] = generation_shapes.get(b, 0) + n
+    scripts_launches = sum(report["scripts"]["launches"].values())
+    for part in ("dp", "scripts"):
+        for b, n in report[part]["launches_by_boards"].items():
+            generation_shapes[b] = generation_shapes.get(b, 0) + n
+    if sum(generation_shapes.values()) != generation_launches + dp_launches + scripts_launches:
+        fail(f"launches by batch {generation_shapes} do not add up to the paths' launches")
 
-    # --- 14. result lines ------------------------------------------------------
+    # --- 15. result lines ------------------------------------------------------
     # time, bound and library time at the batch most launches of the
     # generations have (their self-play's leaves); the error is the largest
-    # over every shape the generations and the [dp] ranks launched
+    # over every shape the generations, the tools and the [dp] ranks launched
     t_report = times[report_boards]
     kernels = [{
         "name": "tower",
@@ -1225,12 +1493,15 @@ def main() -> int:
         "source": "connect4_tpu_torch/models/csrc/tower.cu",
         "replaces": "connect4_tpu/models/pallas_net.py:153",
         # of the training generations of phase 8 (self-play and gating match
-        # of both) and of the [dp] ranks (sharded self-play and two mesh
-        # generations); the self-play path of phase 5 is counted beside it
-        "launches": generation_launches + dp_launches,
+        # of both), of the tools of [scripts] and of the [dp] ranks (sharded
+        # self-play and two mesh generations); the self-play path of phase 5
+        # is counted beside it
+        "launches": generation_launches + scripts_launches + dp_launches,
         "launches_by_path": {"selfplay": launches, "generation": generation_launches,
+                             "scripts": scripts_launches,
                              "dp_selfplay": report["dp"]["launches"]["selfplay"],
                              "dp_generation": report["dp"]["launches"]["generation"]},
+        "launches_by_tool": report["scripts"]["launches"],
         "launches_by_boards": generation_shapes,
         "boards": report_boards,
         "max_abs_err": max(errs[b]["model"]["tower_max"] for b in generation_shapes),

@@ -14,6 +14,10 @@ returns a ``Connect4Net`` holding the same numbers in PyTorch layouts:
 (parameters, running statistics, the SGD momentum trace and the learning
 rate), so that both learners can take their next steps from the same point.
 
+``to_flax`` and ``write_example_net`` go the other way: a net's weights as
+Flax trees, and an npz of them that ``load_example_net`` reads (how
+``scripts.ship_run_artifacts`` ships a run's generation).
+
 ``load_example_net`` reads the packaged gen-161 net from
 ``connect4_tpu_torch/data/example_net_161.npz`` (written from the JAX
 checkpoint by ``scripts/export_example_net_npz.py``), so the port runs the
@@ -155,6 +159,77 @@ def read_example_net(path: str = EXAMPLE_NET):
     config = NetConfig(**json.loads(str(arrays.pop("net_config"))))
     generation = int(arrays.pop("generation"))
     return config, generation, unflatten(arrays, "params"), unflatten(arrays, "batch_stats")
+
+
+def to_flax(net: Connect4Net):
+    """``(params, batch_stats)``: the net's weights as the Flax trees
+    ``from_flax`` takes (nested dicts of float32 numpy arrays), so that
+    ``from_flax(net.config, *to_flax(net))`` is the net bit for bit."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in net.state_dict().items()}
+
+    def conv(prefix):
+        out = {"kernel": sd[f"{prefix}.weight"].transpose(2, 3, 1, 0).copy()}
+        if f"{prefix}.bias" in sd:
+            out["bias"] = sd[f"{prefix}.bias"]
+        return out
+
+    def dense(prefix):
+        return {"kernel": sd[f"{prefix}.weight"].T.copy(), "bias": sd[f"{prefix}.bias"]}
+
+    def bn(prefix):
+        return ({"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]},
+                {"mean": sd[f"{prefix}.running_mean"], "var": sd[f"{prefix}.running_var"]})
+
+    config = net.config
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    p, s = bn("conv_block.bn")
+    params["_ConvBlock_0"] = {"Conv_0": conv("conv_block.conv"), "BatchNorm_0": p}
+    stats["_ConvBlock_0"] = {"BatchNorm_0": s}
+    for i in range(config.n_residuals):
+        rp, rs = {}, {}
+        for j in range(2):
+            rp[f"Conv_{j}"] = conv(f"res_blocks.{i}.conv{j}")
+            rp[f"BatchNorm_{j}"], rs[f"BatchNorm_{j}"] = bn(f"res_blocks.{i}.bn{j}")
+        params[f"_ResidualBlock_{i}"], stats[f"_ResidualBlock_{i}"] = rp, rs
+    p, s = bn("value_head.bn")
+    vh = {"Conv_0": conv("value_head.conv"), "BatchNorm_0": p}
+    for i in range(config.n_fc_layers):
+        vh[f"Dense_{i}"] = dense(f"value_head.fcs.{i}")
+    vh[f"Dense_{config.n_fc_layers}"] = dense("value_head.out")
+    params["_ValueHead_0"], stats["_ValueHead_0"] = vh, {"BatchNorm_0": s}
+    p, s = bn("policy_head.bn")
+    params["_PolicyHead_0"] = {
+        "Conv_0": conv("policy_head.conv"), "BatchNorm_0": p, "Dense_0": dense("policy_head.fc")
+    }
+    stats["_PolicyHead_0"] = {"BatchNorm_0": s}
+    return params, stats
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, f"{prefix}/{name}"))
+        else:
+            out[f"{prefix}/{name}"] = np.asarray(value, dtype=np.float32)
+    return out
+
+
+def write_example_net(path: str, net: Connect4Net, generation: int) -> str:
+    """Write ``net`` as an npz in the layout ``read_example_net`` reads (the
+    one ``scripts/export_example_net_npz.py`` writes from the JAX package):
+    the Flax trees flattened to ``params/...`` and ``batch_stats/...``, the
+    net config as JSON and the generation."""
+    import dataclasses
+
+    params, stats = to_flax(net)
+    arrays = {**_flatten(params, "params"), **_flatten(stats, "batch_stats")}
+    arrays["net_config"] = np.array(json.dumps(dataclasses.asdict(net.config)))
+    arrays["generation"] = np.array(int(generation), dtype=np.int64)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **arrays)
+    return path
 
 
 def load_example_net(path: str = EXAMPLE_NET, device: DeviceLike = None) -> Connect4Net:

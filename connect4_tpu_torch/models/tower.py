@@ -64,7 +64,25 @@ CHAINS = ("step", "tap", "layer")
 CHAIN = "layer"
 TILE_BOARDS = 3  # boards per block: two 64-row tiles, one per warpgroup
 
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
 _BF16 = torch.bfloat16
+
+
+def tower_bound(config: NetConfig, boards: int):
+    """``(bound_ms, bound_by, flops, bytes)`` of the tower on ``boards``
+    boards on an H100: every MAC of the convs on 42 rows a board (37.3
+    MFLOP a board at F=64, 6 residual blocks), and each input, weight and
+    output byte moved once. The bound is the larger of the operations over
+    the bf16 peak and the bytes over the memory rate."""
+    f, c, n = config.filters, config.channels, config.n_residuals
+    flops = boards * AREA * 2 * (9 * c * f + 2 * n * 9 * f * f)
+    weight_bytes = 2 * (9 * c * f + f + 2 * n * (9 * f * f + f))
+    nbytes = boards * AREA * c * 4 + weight_bytes + boards * AREA * f * 2
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
 def pack_weights(config: NetConfig, folded: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

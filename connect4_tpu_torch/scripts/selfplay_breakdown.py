@@ -1,0 +1,224 @@
+"""Wall-clock decomposition of one self-play search wave.
+
+The counterpart of the JAX package's ``scripts/selfplay_breakdown.py``, at
+its workload: 256 slots, a fresh F=64 / fc 6 / res 6 bf16 net, 800
+simulations, K=8 walkers, ``sims_per_call`` 200, mid-game boards after 14
+random plies. It measures, after a warm wave (the kernel's build and
+cuDNN's algorithm search stay out of the times):
+
+1. each part of a wave with the card synchronised after it: the root
+   evaluation (``mcts.batched._root_init``), every ``_run_sims`` segment and
+   ``_finish``;
+2. the bare evaluator forward at the fan-out batch S x K, against which a
+   segment's forwards are counted (one forward a search iteration);
+3. the wave with and without those per-part synchronisations. The port's
+   descent reads a flag from the card once per tree level, so a wave
+   without them still waits on the card every level: it is not pipelined
+   the way a JAX wave is, and the difference is only the few syncs saved;
+4. the card's busy share over one traced segment (``utils.trace``: the
+   kernels' and copies' union over the segment's wall-clock), against the
+   untraced segment's time as well;
+5. the net's FLOP/s against the H100's bf16 peak, a board's FLOPs counted
+   as ``models.tower.tower_bound`` counts them (37.3 MFLOP at full width).
+
+    python -m connect4_tpu_torch.scripts.selfplay_breakdown [--waves 3] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import tempfile
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from connect4_tpu_torch.config import MCTSConfig, NetConfig
+from connect4_tpu_torch.env.core import BoardState, legal_moves
+from connect4_tpu_torch.mcts.batched import _finish, _root_init, _run_sims
+from connect4_tpu_torch.models import tower
+from connect4_tpu_torch.scripts import _common
+from connect4_tpu_torch.types import ONGOING
+from connect4_tpu_torch.utils import make_generator, resolve_device, trace
+
+
+@torch.no_grad()
+def breakdown(
+    eval_fn,
+    state: BoardState,
+    config: MCTSConfig,
+    sims_per_call: int,
+    waves: int,
+    generator: torch.Generator,
+    net_config: Optional[NetConfig] = None,
+    eval_reps: int = 20,
+) -> dict:
+    """Time ``waves`` searches of every board of ``state`` (finished games
+    ride along inactive), split into their parts. ``net_config`` names the
+    net ``eval_fn`` runs, for the FLOP count. Returns the times in
+    ms, the card's busy share and the counts of the last wave: live rows,
+    moves chosen and tree nodes a row."""
+    device = state.device
+    S, K = state.age.shape[0], config.parallel_sims
+    if config.simulations % sims_per_call:
+        raise ValueError("simulations must be divisible by sims_per_call")
+    n_segments = config.simulations // sims_per_call
+    active = state.result == ONGOING
+    valid = legal_moves(state)
+    flat = state.map(lambda x: torch.cat([x] * K))  # the fan-out batch
+
+    def init():
+        return _root_init(eval_fn, state, generator, config, active)
+
+    def segment(tree):
+        return _run_sims(eval_fn, tree, state, config, active, sims_per_call)
+
+    def finish(tree):
+        return _finish(tree, state, generator, config, valid)
+
+    # warm-up: every program once
+    t0 = time.perf_counter()
+    finish(segment(init()))
+    eval_fn(flat)
+    _common.sync(device)
+    warm_s = time.perf_counter() - t0
+
+    _, eval_s = _common.timed(lambda: [eval_fn(flat) for _ in range(eval_reps)], device)
+    eval_s /= eval_reps
+
+    per = {"init": 0.0, "segments": 0.0, "finish": 0.0}
+    seg_times = []
+    for _ in range(waves):
+        tree, dt = _common.timed(init, device)
+        per["init"] += dt
+        for _ in range(n_segments):
+            tree, dt = _common.timed(lambda: segment(tree), device)
+            per["segments"] += dt
+            seg_times.append(dt)
+        res, dt = _common.timed(lambda: finish(tree), device)
+        per["finish"] += dt
+    blocking = sum(per.values()) / waves
+
+    def unsynced_waves():
+        for _ in range(waves):
+            tree = init()
+            for _ in range(n_segments):
+                tree = segment(tree)
+            out = finish(tree)
+        return out
+
+    _, unsynced = _common.timed(unsynced_waves, device)
+    unsynced /= waves
+
+    # the card's busy share over one traced segment of a warm tree
+    tree = segment(init())
+    _common.sync(device)
+    with tempfile.TemporaryDirectory(prefix="selfplay_breakdown_") as log_dir:
+        with trace(log_dir):
+            t_start = time.perf_counter()
+            segment(tree)
+            _common.sync(device)
+            traced_s = time.perf_counter() - t_start
+        events = _common.trace_events(log_dir)
+    busy_ms = _common.device_busy_ms(events)
+    seg_mean = float(np.mean(seg_times))
+
+    iters = config.simulations // K
+    eval_share = iters * eval_s / unsynced
+    out = {
+        "device": _common.device_name(device),
+        "slots": S, "live_rows": int(active.sum()), "simulations": config.simulations,
+        "parallel_sims": K, "sims_per_call": sims_per_call, "waves": waves,
+        "warm_s": warm_s,
+        "eval_ms": eval_s * 1e3, "eval_batch": S * K,
+        "init_ms": per["init"] / waves * 1e3, "segments_ms": per["segments"] / waves * 1e3,
+        "finish_ms": per["finish"] / waves * 1e3,
+        "segment_ms": [t * 1e3 for t in seg_times[:n_segments]],
+        "blocking_wave_ms": blocking * 1e3, "unsynced_wave_ms": unsynced * 1e3,
+        "share": {k: v / waves / blocking for k, v in per.items()},
+        "eval_share": eval_share,
+        "traced_segment_ms": traced_s * 1e3,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": None if busy_ms is None else busy_ms / (traced_s * 1e3),
+        "device_busy_share_of_untraced": None if busy_ms is None else busy_ms / (seg_mean * 1e3),
+        "sims_per_s": S * config.simulations / unsynced,
+        "moves": res.move[active].tolist(),
+        "nodes": res.tree.next_free.tolist(),
+    }
+    if net_config is not None and device.type == "cuda":
+        flops_board = tower.tower_bound(net_config, 1)[2]
+        out["mflop_per_board"] = flops_board / 1e6
+        out["achieved_tflops"] = out["sims_per_s"] * flops_board / 1e12
+        out["mfu"] = out["sims_per_s"] * flops_board / tower.PEAK_BF16_FLOPS
+        out["eval_tflops"] = S * K * flops_board / eval_s / 1e12
+        out["eval_mfu"] = S * K * flops_board / eval_s / tower.PEAK_BF16_FLOPS
+    return out
+
+
+def report(r: dict) -> None:
+    print(f"setup: {r['live_rows']}/{r['slots']} boards live; warm-up {r['warm_s']:.1f} s on {r['device']}")
+    print(f"eval forward [{r['eval_batch']}]: {r['eval_ms']:.2f} ms")
+    print(
+        f"blocking wave: init {r['init_ms']:.1f} ms | {len(r['segment_ms'])} segments "
+        f"{r['segments_ms']:.1f} ms (per-seg {[round(t) for t in r['segment_ms']]}) | "
+        f"finish {r['finish_ms']:.1f} ms"
+    )
+    print(
+        f"wave wall-time: blocking {r['blocking_wave_ms']:.1f} ms, without per-part syncs "
+        f"{r['unsynced_wave_ms']:.1f} ms (the descent still syncs once per tree level)"
+    )
+    print(
+        f"per-wave eval share (est): {r['eval_share']:.1%} of the wave; descent/expand/backup "
+        f"and overheads the rest"
+    )
+    busy = r["device_busy_share"]
+    print(
+        "device busy over one traced segment: "
+        + ("not measured (no card in the trace)" if busy is None else
+           f"{r['device_busy_ms']:.1f} ms of {r['traced_segment_ms']:.1f} ms traced = {busy:.1%} "
+           f"({r['device_busy_share_of_untraced']:.1%} of an untraced segment)")
+    )
+    if "mfu" in r:
+        print(
+            f"throughput {r['sims_per_s']:,.0f} sims/s x {r['mflop_per_board']:.1f} MFLOP/sim = "
+            f"{r['achieved_tflops']:.2f} TFLOP/s = {r['mfu']:.2%} of the bf16 peak; bare eval "
+            f"{r['eval_tflops']:.2f} TFLOP/s ({r['eval_mfu']:.1%}) at batch {r['eval_batch']}"
+        )
+    else:
+        print(f"throughput {r['sims_per_s']:,.0f} sims/s (FLOP/s against the card's peak: not measured)")
+
+
+def run(slots=256, sims=800, parallel_sims=8, sims_per_call=200, waves=3, setup_plies=14,
+        device="cuda") -> dict:
+    """The JAX script's workload on ``device``."""
+    dev = resolve_device(device)
+    net = _common.fresh_net(dev)
+    from connect4_tpu_torch.eval.evaluators import make_net_evaluator
+
+    state = _common.random_playouts(slots, setup_plies, make_generator(42, dev), dev)
+    config = MCTSConfig(simulations=sims, parallel_sims=parallel_sims, root_dirichlet_alpha=1.0,
+                        root_exploration_fraction=0.25, num_sampling_moves=6)
+    return breakdown(make_net_evaluator(net), state, config, sims_per_call, waves,
+                     make_generator(0, dev), net.config)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--slots", type=int, default=256)
+    parser.add_argument("--sims", type=int, default=800)
+    parser.add_argument("--parallel-sims", type=int, default=8)
+    parser.add_argument("--sims-per-call", type=int, default=200)
+    parser.add_argument("--waves", type=int, default=3)
+    parser.add_argument("--setup-plies", type=int, default=14)
+    _common.add_device_arg(parser)
+    args = parser.parse_args(argv)
+    r = run(args.slots, args.sims, args.parallel_sims, args.sims_per_call, args.waves,
+            args.setup_plies, args.device)
+    report(r)
+    _common.emit(r)
+    return r
+
+
+if __name__ == "__main__":
+    main()

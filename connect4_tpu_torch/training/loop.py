@@ -280,15 +280,6 @@ class TrainingLoop:
         path = os.path.join(self.data_dir, name)
         return path if os.path.exists(path) else None
 
-    def _forward_batches(self, planes: np.ndarray, batch_size: int = 4096):
-        """``(slice, value, prior)`` of the net in eval mode over stored
-        NCHW planes, as numpy."""
-        for i in range(0, len(planes), batch_size):
-            sl = slice(i, min(i + batch_size, len(planes)))
-            nchw = torch.from_numpy(np.ascontiguousarray(planes[sl])).to(self.device).float()
-            value, prior = self.forward(nchw.permute(0, 2, 3, 1))
-            yield sl, value.cpu().numpy(), prior.cpu().numpy()
-
     def _evaluate(self) -> None:
         """8-ply value and 7-ply value+policy benchmarks; a set that is
         absent is skipped, and of a partially built one only the solved
@@ -299,10 +290,7 @@ class TrainingLoop:
                 planes8, values8 = d["planes"], d["values"]
                 if "solved" in d:
                     planes8, values8 = _solved_rows(d["solved"], "8-ply", planes8, values8)
-            stats = ValueStats()
-            for sl, value, _ in self._forward_batches(planes8):
-                vals = values8[sl]
-                stats.update(value, vals, float(np.mean((value - vals) ** 2)))
+            stats = value_stats(self.forward, planes8, values8, self.device)
             print("8 Ply Test Stats:  ", stats)
             self.stats_8ply.append(stats.to_dict())
             save_table(self.save_dir, "8ply", self.stats_8ply)
@@ -315,16 +303,7 @@ class TrainingLoop:
                     planes7, values7, policies7 = _solved_rows(
                         d["solved"], "7-ply", planes7, values7, policies7
                     )
-            stats = CombinedStats()
-            for sl, value, prior in self._forward_batches(planes7):
-                vals, priors = values7[sl], policies7[sl]
-                prior_loss = bce_loss(
-                    torch.from_numpy(prior), torch.from_numpy(priors.astype(np.float32))
-                )
-                stats.update(
-                    value, vals, float(np.mean((value - vals) ** 2)),
-                    prior, priors, float(prior_loss),
-                )
+            stats = combined_stats(self.forward, planes7, values7, policies7, self.device)
             print("7 Ply Test Stats:  ", stats)
             self.stats_7ply.append(stats.to_dict())
             save_table(self.save_dir, "7ply", self.stats_7ply)
@@ -376,6 +355,42 @@ class TrainingLoop:
         )
         self.match_results.append(results)
         save_table(self.save_dir, "match_results", self.match_results)
+
+
+def _forward_batches(forward, planes: np.ndarray, device, batch_size: int = 4096):
+    """``(slice, value, prior)`` of ``forward`` (``learner.make_eval_fn``)
+    over stored NCHW planes, as numpy."""
+    for i in range(0, len(planes), batch_size):
+        sl = slice(i, min(i + batch_size, len(planes)))
+        nchw = torch.from_numpy(np.ascontiguousarray(planes[sl])).to(device).float()
+        value, prior = forward(nchw.permute(0, 2, 3, 1))
+        yield sl, value.cpu().numpy(), prior.cpu().numpy()
+
+
+def value_stats(forward, planes: np.ndarray, values: np.ndarray, device) -> ValueStats:
+    """The 8-ply benchmark's statistics of a net: value MSE and bucketed
+    accuracy over stored NCHW planes, in batches of 4096."""
+    stats = ValueStats()
+    for sl, value, _ in _forward_batches(forward, planes, device):
+        vals = values[sl]
+        stats.update(value, vals, float(np.mean((value - vals) ** 2)))
+    return stats
+
+
+def combined_stats(
+    forward, planes: np.ndarray, values: np.ndarray, policies: np.ndarray, device
+) -> CombinedStats:
+    """The 7-ply benchmark's statistics of a net: the value's as for
+    ``value_stats`` and the prior's binary cross-entropy and accuracy."""
+    stats = CombinedStats()
+    for sl, value, prior in _forward_batches(forward, planes, device):
+        vals, priors = values[sl], policies[sl]
+        prior_loss = bce_loss(torch.from_numpy(prior), torch.from_numpy(priors.astype(np.float32)))
+        stats.update(
+            value, vals, float(np.mean((value - vals) ** 2)),
+            prior, priors, float(prior_loss),
+        )
+    return stats
 
 
 def _solved_rows(solved: np.ndarray, name: str, *arrays: np.ndarray):

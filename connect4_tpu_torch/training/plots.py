@@ -5,7 +5,8 @@ re-renders ``8ply.png`` / ``7ply.png`` / ``match_results.png`` in
 ``save_dir`` after every generation from the metric tables
 (``training.tables``), so progress is visible without rerunning a script.
 matplotlib is imported inside ``render``: a machine without it trains all
-the same and only draws no curves.
+the same and only draws no curves, and ``render`` raises an ``ImportError``
+that says so.
 """
 
 from __future__ import annotations
@@ -16,7 +17,13 @@ from connect4_tpu_torch.training.tables import load_table
 
 
 def render(save_dir: str, verbose: bool = True) -> None:
-    import matplotlib
+    try:
+        import matplotlib
+    except ImportError as exc:
+        raise ImportError(
+            f"matplotlib is not installed, so no learning curves were drawn in {save_dir} "
+            "(the metric tables are there as JSON)"
+        ) from exc
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt

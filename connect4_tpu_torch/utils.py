@@ -4,6 +4,7 @@ shared by the port's entry points."""
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Dict, Optional, Union
 
@@ -61,6 +62,31 @@ def np_load_retry(path: str, attempts: int = 5):
             if attempt == attempts - 1:
                 raise
             time.sleep(2.0 * (attempt + 1))
+
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None):
+    """Profile the enclosed block with ``torch.profiler`` (host ops, and
+    the card's kernels and copies where CUDA is available) and write a
+    Chrome/Perfetto trace, ``<log_dir>/trace.json``, when it ends. Yields
+    ``log_dir`` (default ``~/connect4_tpu_torch_traces/<timestamp>``). Use
+    around a warm region: one throwaway call first, so that the kernel's
+    build and cuDNN's algorithm search stay out of the trace. The profiler's
+    own post-processing runs when the block ends and grows with the number
+    of ops traced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = log_dir or os.path.expanduser(f"~/connect4_tpu_torch_traces/{int(time.time())}")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
 class PhaseTimer:

@@ -1,7 +1,8 @@
 """Tests that need a CUDA card: the hand-written kernels against their
 plain PyTorch versions on the card, the train step on the card against the
 CPU, the data-parallel step of two ranks sharing the card against one
-process, and the solver's build on the machine with the card. They skip
+process, the solver's build on the machine with the card, and
+``scripts.evaluate_posn`` on the card against the CPU. They skip
 where there is no card. This file imports neither JAX nor the JAX package:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu
@@ -182,3 +183,27 @@ def test_solver_builds_and_solves_on_this_machine():
     for m in [0, 2, 0, 3, 6, 4]:  # x holds an open three on the bottom row; o to move loses
         board.make_move(m)
     assert exact.outcome_to_move(board) == -1 and exact.absolute_value(board) == 0.0
+
+
+@pytest.mark.gpu
+def test_evaluate_posn_on_card_matches_cpu(tmp_path):
+    """``scripts.evaluate_posn`` with the packaged gen-161 net on the card
+    (the tower kernel) against the CPU (its plain version, rounded to
+    nearest): the value within 5e-2 and the prior within 2e-2, the
+    tolerances ``chip_smoke.py`` holds the kernel to against that version.
+    The search on the card runs through the kernel as well."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from connect4_tpu_torch.scripts import evaluate_posn
+
+    pos = tmp_path / "position.txt"
+    pos.write_text(". . . . . . .\n. . . . . . .\n. . . . . . .\n. . . x . . .\n"
+                   ". . o o x . .\n. x o o x o .\n")
+    before = tower.run_tower.launches
+    card = evaluate_posn.main([str(pos), "--search", "--simulations", "64", "--device", "cuda"])
+    assert tower.run_tower.launches > before + 64  # the root and every search iteration
+    cpu = evaluate_posn.main([str(pos), "--device", "cpu"])
+    assert card["player"] == cpu["player"] == "gen161"
+    assert abs(card["value"] - cpu["value"]) <= 5e-2
+    assert max(abs(a - b) for a, b in zip(card["prior"], cpu["prior"])) <= 2e-2
+    assert sum(card["root_visits"]) == 64
