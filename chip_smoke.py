@@ -13,7 +13,8 @@ fatal on failure:
    at (``COMPARE_BOARDS``: a pool of S slots evaluates S roots and S x K=8
    leaves, and halves S down to 64 while it drains, so 4096 ... 64 for the
    512-slot and 256-slot pools; the 49 boards of a match, 49 roots and 392
-   leaves; B=261, as the JAX package's tests take it; B=1), with the
+   leaves, and 784 leaves for its K=16 player; B=261, as the JAX package's
+   tests take it; B=1), with the
    packaged gen-161 net (F=64, fc 6, res 6, bf16). A block takes 3 boards,
    so the last block holds 1, 2 or 3 boards over these shapes. The script
    records the batch of every launch the paths make and fails if one was
@@ -64,9 +65,21 @@ fatal on failure:
     (256 slots, 800 simulations, K=8) for two waves, with the card's busy
     share; ``profile_search`` with its trace; ``sweep_search_batch``;
     ``descent_depth_profile``; one epoch of ``verify_supervised``;
-    ``ship_run_artifacts``. The tools of a folded bf16 net must launch the
-    kernel, every batch they launch must have been compared, the plain
-    tower is never entered;
+    ``ship_run_artifacts``; ``measure_compile`` at 64 slots, 64 simulations
+    and one 64-simulation segment, its cold phases (``import torch``, the
+    CUDA context, a cold ``nvcc`` build of the tower kernel, the library's
+    load, the first and warm calls of the search programs, two refill
+    generations of 256 games) in the child process it spawns, whose
+    launches it reports and this script checks with its own;
+    ``k_head_to_head`` with gen-161, K=8 against K=16 at 256 simulations
+    (cut from 800), 2-ply starts in both colours; ``draw_bucket_diagnosis``
+    at its defaults; ``draw_bucket_experiment`` on phase 8's generation 2,
+    one epoch of each of the five default variants; ``finalize_fullset`` on
+    phase 8's run and the full sets (``verify_supervised`` at 10 epochs).
+    The tools of a folded bf16 net (``matches``, ``evaluate_posn``, the
+    measurement tools, ``measure_compile``, ``k_head_to_head``) must launch
+    the kernel and the others must not, every batch they launch must have
+    been compared, the plain tower is never entered;
 11. [dp] data parallelism with two ranks sharing the card through gloo
     (spawned processes on ``cuda:0``; a rank that fails fails the run):
     sharded refill self-play of 256 games in 256 slots with gen-161 (K=8,
@@ -130,8 +143,10 @@ SMOKE = dict(slots=512, games=512, simulations=64, parallel_sims=8, seed=0)
 # evaluates S roots and S x 8 leaves and halves S down to 64 as it drains:
 # 4096 ... 64 covers the 512-slot self-play of phase 5 and the 256-slot
 # self-play of the generations. A match plays 49 boards: 49 roots, 392
-# leaves. 261 is the shape of the JAX package's tests, 1 a single board.
-COMPARE_BOARDS = (4096, 2048, 1024, 512, 392, 261, 256, 128, 64, 49, 1)
+# leaves at K=8 and 784 at K=16 (``k_head_to_head``'s K=8 against K=16;
+# 784 = 3 x 261 + 1 leaves a last block of one board). 261 is the shape of
+# the JAX package's tests, 1 a single board.
+COMPARE_BOARDS = (4096, 2048, 1024, 784, 512, 392, 261, 256, 128, 64, 49, 1)
 # The shapes timed. The kernels line reports the one that most launches of
 # the path it counts have: the leaf batch of the generations' self-play, 2048.
 TIME_BOARDS = (4096, 2048, 512, 392, 64)
@@ -507,15 +522,19 @@ def gen161_match(net, dev, shapes):
 # [scripts]: the run and measurement tools of ``connect4_tpu_torch.scripts``
 
 # Their sizes on the card. Every batch the tools launch the tower at is in
-# COMPARE_BOARDS: a match of 49 two-ply starts at K=8 (49, 392), one board
-# (1), 256 slots at K=8 (256, 2048), a batch of 512 at K=8 (512, 4096), and
-# pools of 64 ... 256 rows at K=8.
+# COMPARE_BOARDS: a match of 49 two-ply starts at K=8 (49, 392) and at K=16
+# (784), one board (1), 256 slots at K=8 (256, 2048), a batch of 512 at K=8
+# (512, 4096), and pools of 64 ... 256 rows at K=8 (measure_compile's 64
+# slots: 64, 512).
 SCRIPTS = dict(
     match_sims=64, match_k=8, posn_sims=800, breakdown_waves=2,
     search=dict(batch=512, sims=64, k=8),
     sweep=dict(batches=(64, 128), sims=64, k=8, sims_per_call=64),
     descent=dict(sims=400, k=8, sims_per_call=200, rows=256, pool_rows=(64, 128, 256)),
     supervised_epochs=1,
+    measure_compile=dict(slots=64, sims=64, sims_per_call=64),
+    k_head_to_head=dict(ka=8, kb=16, sims=256, plies=2),  # sims cut from 800
+    draw_bucket_experiment=dict(gen=2, epochs=1),
 )
 POSITION = ". . . . . . .\n. . . . . . .\n. . . . . . .\n. . . x . . .\n. . o o x . .\n. x o o x o .\n"
 TOL_REEVALUATE = 1e-5  # a re-evaluated row against the one the loop wrote
@@ -578,15 +597,19 @@ def reevaluate_card_and_cpu(reevaluate_run, run_dir, data_dir, tmp, dev):
 
 
 def scripts_phase(dev, shapes, run_dir):
-    """Phase 10, [scripts]: every tool that computes, at full width on the
-    card through its plain function: ``reevaluate_run`` over the two phase-8
+    """Phase 10, [scripts]: every tool at full width on the card through
+    its plain function: ``reevaluate_run`` over the two phase-8
     generations (each row equal to the loop's own within TOL_REEVALUATE, and
     generation 2's rows on a cut of the sets equal to the CPU's within
     TOL_REEVALUATE_CPU), ``matches`` between them, ``evaluate_posn --search`` with gen-161 at 800
     simulations, ``selfplay_breakdown`` at its defaults, ``profile_search``
     with its trace, ``sweep_search_batch``, ``descent_depth_profile``,
-    ``verify_supervised`` (one epoch) and ``ship_run_artifacts``. Each tool
-    is driven with the kernel's count set to 0 and read after it; a tool of
+    ``verify_supervised`` (one epoch), ``ship_run_artifacts``,
+    ``measure_compile`` (its cold phases in a child process),
+    ``k_head_to_head``, ``draw_bucket_diagnosis``,
+    ``draw_bucket_experiment`` and ``finalize_fullset``. Each tool is driven
+    with the kernel's count set to 0 and read after it (``measure_compile``
+    adds its child's launches, which the child counts by batch); a tool of
     a folded bf16 net must launch the kernel, the others (the learner's
     unfolded net, through cuDNN) must not, the plain tower is never entered
     and every batch launched must have been compared."""
@@ -601,8 +624,13 @@ def scripts_phase(dev, shapes, run_dir):
     from connect4_tpu_torch.scripts import (
         _common,
         descent_depth_profile,
+        draw_bucket_diagnosis,
+        draw_bucket_experiment,
         evaluate_posn,
+        finalize_fullset,
+        k_head_to_head,
         matches,
+        measure_compile,
         profile_search,
         reevaluate_run,
         selfplay_breakdown,
@@ -651,8 +679,21 @@ def scripts_phase(dev, shapes, run_dir):
         with open(config_file, "w") as fh:
             fh.write("from connect4_tpu_torch.config import *\n"
                      f"config = AlphaZeroConfig(storage_config=StorageConfig(save_dir={run_dir!r}))\n")
-        tools.append(("ship_run_artifacts", False, lambda: ship_run_artifacts.ship(
-            config_file, os.path.join(tmp, "shipped"), device=dev)))
+        mc, kh, dx = P["measure_compile"], P["k_head_to_head"], P["draw_bucket_experiment"]
+        tools += [
+            ("ship_run_artifacts", False, lambda: ship_run_artifacts.ship(config_file, os.path.join(tmp, "shipped"))),
+            ("measure_compile", True, lambda: measure_compile.measure(
+                mc["slots"], mc["sims"], sims_per_call=mc["sims_per_call"], device=dev)),
+            ("k_head_to_head", True, lambda: k_head_to_head.k_head_to_head(
+                make_net_evaluator(k_head_to_head.load_net(None, None, dev)[1]), kh["ka"], kh["kb"], kh["sims"],
+                kh["plies"], dev)),
+            ("draw_bucket_diagnosis", False, lambda: draw_bucket_diagnosis.diagnose(
+                load_example_net(device=dev), data_dir, device=dev)),
+            ("draw_bucket_experiment", False, lambda: draw_bucket_experiment.experiment(
+                run_dir, dx["gen"], data_dir, epochs=dx["epochs"], device=dev)),
+            ("finalize_fullset", False, lambda: finalize_fullset.finalize(
+                config_file, os.path.join(tmp, "finalized"), device=dev)),
+        ]
         seconds = {}
         for name, launches_kernel, drive in tools:
             torch.cuda.synchronize()
@@ -662,8 +703,16 @@ def scripts_phase(dev, shapes, run_dir):
             torch.cuda.synchronize()
             seconds[name] = time.perf_counter() - t0
             launches[name] = tower.run_tower.launches
-            for b, n in shapes.take(f"scripts {name}").items():
-                by_boards[b] = by_boards.get(b, 0) + n
+            seen = [shapes.take(f"scripts {name}")]
+            if name == "measure_compile":
+                # the cold phases ran in a child process, which counted its
+                # own launches by batch where the kernel was launched
+                launches[name] += out[name]["launches"]
+                seen.append(check_shapes("scripts measure_compile (child process)",
+                                         out[name]["launches_by_boards"]))
+            for part in seen:
+                for b, n in part.items():
+                    by_boards[b] = by_boards.get(b, 0) + n
             if launches_kernel != (launches[name] > 0):
                 fail(f"[scripts] {name} launched the tower kernel {launches[name]} times")
             if plain_calls:
@@ -745,6 +794,54 @@ def scripts_phase(dev, shapes, run_dir):
         f"{out['ship_run_artifacts']['generation']} shipped, loads bit for bit: {shipped_equal}")
     if not shipped_equal:
         problems.append("ship_run_artifacts: the shipped net differs from the checkpoint")
+    mcr = out["measure_compile"]
+    log(f"[scripts] measure_compile: {seconds['measure_compile']:.1f} s, child process {mcr['child_pid']} (this "
+        f"process {mcr['parent_pid']}; torch loaded at its start: {mcr['torch_loaded_at_start']}), "
+        f"{mcr['slots']} slots, {mcr['sims']} sims, K={mcr['parallel_sims']}: interpreter start "
+        f"{mcr['interpreter_start_s']:.2f} s, import torch {mcr['import_torch_s']:.2f} s, import the port "
+        f"{mcr['import_port_s']:.2f} s, CUDA context {mcr['cuda_context_s']:.2f} s, cold nvcc build of the tower "
+        f"{mcr['nvcc_build_s']:.2f} s, library load {mcr['library_load_s']:.3f} s; first / warm call: "
+        + ", ".join(f"{k} {t['first_s']:.3f} / {t['warm_s']:.3f} s" for k, t in mcr["programs"].items())
+        + f"; refill generation of {mcr['generation']['games']} games first {mcr['generation']['first_s']:.2f} s, "
+        f"second {mcr['generation']['second_s']:.2f} s; launches in the child {mcr['launches']}")
+    for line in mcr["ptxas"]:
+        if "registers" in line or "Compiling entry" in line:  # the full report is in chip_smoke.json
+            log(f"[scripts] measure_compile ptxas: {line}")
+    if (mcr["child_pid"] == os.getpid() or mcr["torch_loaded_at_start"] or not mcr["ptxas"]
+            or mcr["generation"]["finished"] != mcr["generation"]["games"]):
+        problems.append(f"measure_compile: not a cold child process, no build report or unfinished games: "
+                        f"{ {k: mcr[k] for k in ('child_pid', 'torch_loaded_at_start', 'generation')} }")
+    khr = out["k_head_to_head"]
+    log(f"[scripts] k_head_to_head: {seconds['k_head_to_head']:.1f} s, gen-161, K={khr['ka']} against "
+        f"K={khr['kb']} at {kh['sims']} sims, {kh['plies']}-ply starts both colours: {json.dumps(khr)}; launches "
+        f"{launches['k_head_to_head']}")
+    if khr["wins"] + khr["draws"] + khr["losses"] != 98:
+        problems.append(f"k_head_to_head: {khr}")
+    dg = out["draw_bucket_diagnosis"]
+    log(f"[scripts] draw_bucket_diagnosis: {seconds['draw_bucket_diagnosis']:.1f} s, gen-161 on {dg['positions']} "
+        f"solved 8-ply positions: " + "; ".join(
+            f"target {c}: n {v['n']}, mean {v['mean_pred']:.4f}, median {v['median']:.4f}, bucket accuracy "
+            f"{v['bucket_acc']:.4f}" for c, v in dg["classes"].items())
+        + f"; best monotone recalibration {dg['recalibration']['accuracy']:.4f} (draw recall "
+        f"{dg['recalibration']['draw_recall']:.4f}, thresholds {[round(t, 4) for t in dg['recalibration']['thresholds']]})")
+    if sum(v["n"] for v in dg["classes"].values()) != dg["positions"]:
+        problems.append("draw_bucket_diagnosis: the classes do not add up to the positions")
+    ex = out["draw_bucket_experiment"]
+    log(f"[scripts] draw_bucket_experiment: {seconds['draw_bucket_experiment']:.1f} s, generation {ex['gen']} of "
+        f"phase 8's run, {dx['epochs']} epoch a variant: baseline MSE {ex['baseline']['mse']:.5f} acc "
+        f"{ex['baseline']['acc']:.4f}; " + "; ".join(
+            f"w={v['w']} lam={v['lam']} ({v['positions']} positions, {v['steps_per_epoch']} steps): MSE "
+            f"{v['epochs'][-1]['mse']:.5f} acc {v['epochs'][-1]['acc']:.4f} draw {v['epochs'][-1]['acc_draw']:.4f}"
+            for v in ex["variants"]))
+    if not np.isfinite([v["epochs"][-1]["mse"] for v in ex["variants"]]).all():
+        problems.append("draw_bucket_experiment: an MSE is not finite")
+    fz = out["finalize_fullset"]
+    fz_losses = [e["loss"] for e in fz["verify_supervised"]["epochs"]]
+    log(f"[scripts] finalize_fullset: {seconds['finalize_fullset']:.1f} s, solved {fz['solved']}, generations "
+        f"{fz['reevaluate_run']['generations']} re-evaluated, verify_supervised {len(fz_losses)} epochs, loss "
+        f"{fz_losses[0]:.4f} -> {fz_losses[-1]:.4f}")
+    if len(fz_losses) != 10 or not np.isfinite(fz_losses).all():
+        problems.append(f"finalize_fullset: verify_supervised losses {fz_losses}")
     finite = [b["blocking_wave_ms"], b["unsynced_wave_ms"], b["eval_ms"], b["device_busy_share"], ps["sims_per_s"]]
     if not np.isfinite(finite).all() or not 0 < b["device_busy_share"] <= 1:
         problems.append(f"selfplay_breakdown or profile_search: {finite}")
@@ -752,8 +849,10 @@ def scripts_phase(dev, shapes, run_dir):
         fail("[scripts] " + "; ".join(problems))
     return {"config": SCRIPTS, "seconds": seconds, "launches": launches, "launches_by_boards": by_boards,
             "reevaluate_max_diff": reeval_diff, "reevaluate_cpu_max_diff": cpu_diff, "results": {
-                k: r for k, r in out.items() if k not in ("reevaluate_run",)} | {
-                "reevaluate_run": {k: reeval[k] for k in ("generations", "sets", "curves")}}}
+                k: r for k, r in out.items() if k not in ("reevaluate_run", "finalize_fullset")} | {
+                "reevaluate_run": {k: reeval[k] for k in ("generations", "sets", "curves")},
+                "finalize_fullset": {"solved": fz["solved"], "generations": fz["reevaluate_run"]["generations"],
+                                     "supervised_losses": fz_losses}}}
 
 
 # ---------------------------------------------------------------------------

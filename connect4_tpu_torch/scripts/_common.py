@@ -62,6 +62,25 @@ def fresh_net(device: torch.device, filters: int = 64, seed: int = 0):
     return init_net(config, torch.Generator().manual_seed(seed), device=device)
 
 
+def load_net(checkpoint_dir: Optional[str], generation: Optional[int], device):
+    """``(name, net)``: the packaged gen-161 net when ``checkpoint_dir`` is
+    None, else generation ``generation`` (default: the latest readable one)
+    of a run's checkpoints, which carry the net's widths and dtype."""
+    from connect4_tpu_torch.models.convert import load_example_net
+    from connect4_tpu_torch.training import checkpoint as ckpt
+
+    if checkpoint_dir is None:
+        return "gen161", load_example_net(device=device)
+    if generation is None:
+        restored = ckpt.restore_latest(checkpoint_dir, device=device)
+        if restored is None:
+            raise FileNotFoundError(f"no readable checkpoints under {checkpoint_dir}")
+        generation, state, _ = restored
+    else:
+        state, _ = ckpt.restore_checkpoint(checkpoint_dir, generation, device=device)
+    return f"gen{generation}", state.net
+
+
 def random_playouts(n: int, plies: int, generator: torch.Generator, device) -> BoardState:
     """``n`` games of ``plies`` uniformly random legal moves from the empty
     board; a game that ends stays as it ended."""

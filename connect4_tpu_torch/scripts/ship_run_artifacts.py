@@ -16,9 +16,10 @@ trained net plus the learning-curve history. Here:
 It writes only under ``--dest``, so the net ``cli game`` loads by default
 stays the packaged one. Run it while training is live to snapshot progress
 (checkpoints are written whole, one a generation), and again at the end.
+Like the JAX tool it needs no card: the checkpoint is restored to the CPU.
 
     python -m connect4_tpu_torch.scripts.ship_run_artifacts -c CONFIG --dest DIR \\
-        [--gen N] [--log train.log] [--device cpu]
+        [--gen N] [--log train.log]
 """
 
 from __future__ import annotations
@@ -31,26 +32,23 @@ import shutil
 from typing import Optional
 
 from connect4_tpu_torch.scripts import _common
-from connect4_tpu_torch.utils import resolve_device
 
 TABLES = ("8ply", "7ply", "match_results")
 
 
-def ship(config_path: str, dest: str, gen: Optional[int] = None, log: Optional[str] = None,
-         device="cuda") -> dict:
+def ship(config_path: str, dest: str, gen: Optional[int] = None, log: Optional[str] = None) -> dict:
     from connect4_tpu_torch.config import load_config_file
     from connect4_tpu_torch.models.convert import write_example_net
     from connect4_tpu_torch.scripts.reevaluate_run import draw_curves
     from connect4_tpu_torch.training import checkpoint as ckpt
     from connect4_tpu_torch.training.tables import load_table, save_table
 
-    dev = resolve_device(device)
     config = load_config_file(config_path)
     run_dir = config.storage_config.save_dir
     gen = gen if gen is not None else ckpt.latest_generation(run_dir)
     if gen is None:
         raise SystemExit(f"no checkpoints under {run_dir}")
-    state, _ = ckpt.restore_checkpoint(run_dir, gen, device=dev)
+    state, _ = ckpt.restore_checkpoint(run_dir, gen, device="cpu")
     dest = os.path.abspath(dest)
 
     net_dir = os.path.join(dest, "example_net")
@@ -78,7 +76,7 @@ def ship(config_path: str, dest: str, gen: Optional[int] = None, log: Optional[s
         json.dump({"generation": gen, "run_dir": run_dir, "npz": os.path.basename(npz)}, fh, indent=2)
     print(f"copied {', '.join(copied)} -> {run_out}")
     curves = draw_curves(run_out)
-    return {"device": _common.device_name(dev), "generation": gen, "npz": npz, "run_out": run_out,
+    return {"generation": gen, "npz": npz, "run_out": run_out,
             "copied": copied, "curves": curves}
 
 
@@ -88,9 +86,8 @@ def main(argv=None):
     parser.add_argument("--dest", required=True, help="destination directory")
     parser.add_argument("--gen", type=int, default=None, help="generation to package (default: latest)")
     parser.add_argument("--log", default=None, help="training log file to include")
-    _common.add_device_arg(parser)
     args = parser.parse_args(argv)
-    r = ship(args.config, args.dest, args.gen, args.log, resolve_device(args.device))
+    r = ship(args.config, args.dest, args.gen, args.log)
     _common.emit(r)
     return r
 

@@ -1,7 +1,8 @@
 """The port's run tools (``connect4_tpu_torch.scripts``: matches,
 reevaluate_run, plot_training_graphs, compare_runs, evaluate_posn,
-view_games, game_stats, verify_supervised, ship_run_artifacts) and its
-example configs against the JAX package's scripts and functions, on the
+view_games, game_stats, verify_supervised, ship_run_artifacts), the
+``--help`` and missing-card refusal of every tool, and the port's example
+configs against the JAX package's scripts and functions, on the
 CPU at small sizes: the same inputs, made from seeds with numpy, through
 both sides."""
 
@@ -58,6 +59,7 @@ TOOLS = [
     "selfplay_breakdown", "profile_search", "profile_refill_wave", "sweep_search_batch",
     "descent_depth_profile", "matches", "reevaluate_run", "plot_training_graphs", "compare_runs",
     "evaluate_posn", "view_games", "game_stats", "verify_supervised", "ship_run_artifacts",
+    "measure_compile", "k_head_to_head", "draw_bucket_diagnosis", "draw_bucket_experiment", "finalize_fullset",
 ]
 
 
@@ -176,7 +178,11 @@ def test_every_tool_has_help(tool, capsys):
     ("reevaluate_run", ["-c", "config.py", "--out", "out"]),
     ("evaluate_posn", ["position.txt"]),
     ("verify_supervised", []),
-    ("ship_run_artifacts", ["-c", "config.py", "--dest", "out"]),
+    ("measure_compile", []),
+    ("k_head_to_head", []),
+    ("draw_bucket_diagnosis", []),
+    ("draw_bucket_experiment", ["--run-dir", "run"]),
+    ("finalize_fullset", ["--out", "out"]),
 ])
 def test_compute_tools_refuse_a_missing_cuda(tool, argv):
     """The default device is CUDA; without a card a tool raises before it
@@ -402,7 +408,7 @@ def test_ship_run_artifacts_and_plot_training_graphs(tmp_path, monkeypatch, caps
     cfg = _port_config_file(tmp_path / "cfg.py", run)
     (tmp_path / "train.log").write_text("generation 1\n")
     got = ship_run_artifacts.main(["-c", cfg, "--dest", str(tmp_path / "dest"), "--gen", "1",
-                                   "--log", str(tmp_path / "train.log"), "--device", "cpu"])
+                                   "--log", str(tmp_path / "train.log")])
     shipped = load_example_net(got["npz"], device="cpu")
     want = ckpt.restore_checkpoint(str(run), 1, device="cpu")[0].net
     assert shipped.config == want.config
@@ -423,12 +429,32 @@ def test_ship_run_artifacts_and_plot_training_graphs(tmp_path, monkeypatch, caps
         monkeypatch.delitem(sys.modules, name)
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     capsys.readouterr()
-    again = ship_run_artifacts.main(["-c", cfg, "--dest", str(tmp_path / "dest2"), "--device", "cpu"])
+    again = ship_run_artifacts.main(["-c", cfg, "--dest", str(tmp_path / "dest2")])
     assert again["generation"] == 2 and again["curves"] is False
     assert "no curves drawn: matplotlib is not installed" in capsys.readouterr().out
     assert not any(f.endswith(".png") for f in os.listdir(tmp_path / "dest2" / "example_run"))
     with pytest.raises(SystemExit, match="matplotlib is not installed"):
         plot_training_graphs.main([str(tmp_path / "dest2" / "example_run")])
+
+
+def test_ship_run_artifacts_needs_no_card(tmp_path, monkeypatch):
+    """As the JAX tool, it takes no device: with CUDA unavailable it
+    restores a float32 checkpoint to the CPU and ships it bit for bit."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    run = tmp_path / "run"
+    _, var, _ = flax_net(7)
+    ckpt.save_checkpoint(str(run), 3, port_state(var), torch.Generator())
+    cfg = _port_config_file(tmp_path / "cfg.py", run)
+    with pytest.raises(SystemExit):
+        ship_run_artifacts.main(["-c", cfg, "--dest", str(tmp_path / "dest"), "--device", "cpu"])
+    got = ship_run_artifacts.main(["-c", cfg, "--dest", str(tmp_path / "dest")])
+    assert got["generation"] == 3 and os.path.basename(got["npz"]) == "example_net_3.npz"
+    shipped = load_example_net(got["npz"], device="cpu")
+    want = port_state(var).net
+    assert shipped.config == want.config
+    for k, v in want.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(v, shipped.state_dict()[k]), k
 
 
 @pytest.mark.parametrize("name", ["config", "config_r3_k1", "config_r3_k8", "config_r3_k8_draw"])
