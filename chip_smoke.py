@@ -80,19 +80,30 @@ fatal on failure:
     measurement tools, ``measure_compile``, ``k_head_to_head``) must launch
     the kernel and the others must not, every batch they launch must have
     been compared, the plain tower is never entered;
-11. [dp] data parallelism with two ranks sharing the card through gloo
-    (spawned processes on ``cuda:0``; a rank that fails fails the run):
-    sharded refill self-play of 256 games in 256 slots with gen-161 (K=8,
-    64 simulations, noise on), whose games must finish, replay legally and
-    open differently on the two ranks; three data-parallel train steps at
-    full width and batch 4096 (2048 a rank), float32 and bf16, held against
-    the single-process step with the limits of phase 6 (and the momentum
-    buffers with ``TOL_DP_MOMENTUM``, which a planted fault must exceed),
-    the replicas equal bit for bit after each, timed beside the
-    single-process step with the share of the all-reduces; one ``TrainingLoop`` generation with
-    ``mesh_shape=(2,)`` at the depth of phase 8 (no match), then a resumed
-    one. Each rank's launches by batch go through the [shapes] check, and
-    neither rank may enter the plain tower;
+11. [dp] data parallelism with four ranks from two torchrun agents (two
+    nodes of two ranks, ``--rdzv_backend c10d`` on a local port; each rank
+    is this script re-entered as ``chip_smoke.py --dp-rank DIR``), all on
+    ``cuda:0`` through gloo (NCCL refuses ranks that share a card); a rank
+    or an agent that fails, or a launch that outlasts ``DP['timeout']``,
+    fails the run, and nothing retries with fewer ranks. One line a rank
+    says where it runs (rank, local rank, node, device, backend). Sharded
+    refill self-play of 256 games in 256 slots (64 a rank) with gen-161
+    (K=8, 64 simulations, noise on), whose games must finish, replay legally
+    and open differently on every pair of ranks; the same pool with noise
+    off, once with the centre evaluator, whose gathered games must equal
+    one process's 4-block pool on the card game for game and move for move
+    (policies and move values within 1e-5, as phase 4 holds the card to the
+    CPU), and once with gen-161 through the tower kernel, whose count of
+    games that differ from one process's pool is printed; three
+    data-parallel train steps at full width and batch 4096 (1024 a rank),
+    float32 and bf16, held against the single-process step with the limits
+    of phase 6 (and the momentum buffers with ``TOL_DP_MOMENTUM``, which a
+    planted fault must exceed), the replicas equal bit for bit after each,
+    timed beside the single-process step with the share of the
+    all-reduces; one ``TrainingLoop`` generation with ``mesh_shape=(4,)``
+    at the depth of phase 8 (no match), then a resumed one, every rank
+    starting at the same generation. Each rank's launches by batch go
+    through the [shapes] check, and no rank may enter the plain tower;
 12. a one-rank NCCL group takes one data-parallel step, bit for bit the
     single-process step;
 13. [host] ``HostMCTS`` and ``GridSearch`` choose the tactic table's moves,
@@ -856,12 +867,13 @@ def scripts_phase(dev, shapes, run_dir):
 
 
 # ---------------------------------------------------------------------------
-# [dp]: data parallelism, two ranks sharing the one card through gloo
+# [dp]: data parallelism, four ranks from two torchrun agents (two nodes of
+# two ranks) sharing the one card through gloo
 
 DP = dict(
-    world=2, device="cuda:0", backend="gloo",
+    nodes=2, per_node=2, world=4, device="cuda:0", backend="gloo",
     selfplay=dict(slots=256, games=256, simulations=64, parallel_sims=8, seed=0),
-    batch=4096, steps=3, time_steps=5, seed=3,
+    batch=4096, steps=3, time_steps=5, seed=3, timeout=900,
 )
 
 
@@ -909,19 +921,31 @@ def train_batches(n, count, generator, dev):
     return out
 
 
-def dp_rank(rank, init_file, out_dir):
-    """One rank of the [dp] phase, in a spawned process on ``DP['device']``:
-    sharded refill self-play, data-parallel train steps against the
-    single-process step (rank 0 runs that), and two ``TrainingLoop``
-    generations with ``mesh_shape=(2,)``, the second resumed. Its numbers go
-    to ``<out_dir>/rank<r>.pt``; an exception fails the rank, and the spawn
-    fails the parent."""
+def quiet_config():
+    """The [dp] self-play's search with noise and sampling off: every game
+    is then a function of the evaluator alone, so the ranks' gathered pool
+    can be held against one process's pool of the same blocks."""
+    from connect4_tpu_torch.config import MCTSConfig
+
+    sp = DP["selfplay"]
+    return MCTSConfig(simulations=sp["simulations"], parallel_sims=sp["parallel_sims"])
+
+
+def dp_rank(out_dir):
+    """One rank of the [dp] phase, started by a torchrun agent as
+    ``chip_smoke.py --dp-rank DIR`` on ``DP['device']``: sharded refill
+    self-play (noise on, then noise off with the centre evaluator and with
+    gen-161), data-parallel train steps against the single-process step
+    (rank 0 runs that), and two ``TrainingLoop`` generations with
+    ``mesh_shape=(4,)``, the second resumed. Its numbers go to
+    ``<out_dir>/rank<r>.pt``; an exception fails the rank, its agent and
+    the phase."""
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, ROOT)
     from connect4_tpu_torch.config import AlphaZeroConfig, MCTSConfig, ModelConfig, NetConfig, StorageConfig
-    from connect4_tpu_torch.eval.evaluators import make_net_evaluator
+    from connect4_tpu_torch.eval.evaluators import centre_evaluator_batched, make_net_evaluator
     from connect4_tpu_torch.models import tower
     from connect4_tpu_torch.models.convert import load_example_net
     from connect4_tpu_torch.parallel import mesh as pmesh
@@ -933,10 +957,11 @@ def dp_rank(rank, init_file, out_dir):
     from connect4_tpu_torch.utils import make_generator, resolve_device
 
     dev = resolve_device(DP["device"])
-    pmesh.initialize_distributed(DP["backend"], dev, init_method=f"file://{init_file}", rank=rank,
-                                 world_size=DP["world"])
+    pmesh.initialize_distributed(DP["backend"], dev)  # torchrun's rendezvous (env://)
     mesh = pmesh.make_mesh((DP["world"],), dev)
-    out = {"mesh": [mesh.rank, mesh.world_size, str(mesh.device), mesh.backend]}
+    rank = mesh.rank
+    out = {"mesh": {"rank": rank, "local_rank": mesh.local_rank, "node": int(os.environ["GROUP_RANK"]),
+                    "world": mesh.world_size, "device": str(mesh.device), "backend": mesh.backend}}
     shapes = LaunchShapes(tower)
     plain_calls = []
     tower_plain = tower.tower_plain
@@ -948,27 +973,32 @@ def dp_rank(rank, init_file, out_dir):
     tower.tower_plain = watched_plain
 
     def replicas_equal(state):
-        both = pmesh.all_gather_rows(state_vector(state)[None], mesh)
-        return all(bool(torch.equal(both[0], both[r])) for r in range(1, DP["world"]))
+        every = pmesh.all_gather_rows(state_vector(state)[None], mesh)
+        return all(bool(torch.equal(every[0], every[r])) for r in range(1, DP["world"]))
 
-    # --- sharded refill self-play ------------------------------------------
+    # --- sharded refill self-play: noise on, then noise off ------------------
     sp = DP["selfplay"]
+    net_evaluator = make_net_evaluator(load_example_net(device=dev))
     cfg = MCTSConfig(simulations=sp["simulations"], parallel_sims=sp["parallel_sims"],
                      root_dirichlet_alpha=0.3, root_exploration_fraction=0.25, num_sampling_moves=6)
-    play = make_refill_play_fn(make_net_evaluator(load_example_net(device=dev)), cfg, sp["slots"],
-                               sp["games"], mesh=mesh)
-    generator = mesh.fork_generator(make_generator(sp["seed"], dev))
-    mesh.barrier()
-    torch.cuda.synchronize()
-    tower.run_tower.launches = 0
-    t0 = time.perf_counter()
-    games = play(generator)
-    torch.cuda.synchronize()
-    out["selfplay"] = {"seconds": time.perf_counter() - t0, "launches": tower.run_tower.launches,
-                       "by_boards": shapes.by_boards}
-    shapes.by_boards = {}
-    if rank == 0:
-        torch.save(type(games)(*(x.cpu() for x in games)), os.path.join(out_dir, "games.pt"))
+    runs = (("selfplay", net_evaluator, cfg, True), ("quiet_centre", centre_evaluator_batched, quiet_config(), False),
+            ("quiet_gen161", net_evaluator, quiet_config(), False))
+    for name, evaluator, config, fork in runs:
+        play = make_refill_play_fn(evaluator, config, sp["slots"], sp["games"], mesh=mesh)
+        generator = make_generator(sp["seed"], dev)
+        if fork:  # each rank its own noise and openings
+            generator = mesh.fork_generator(generator)
+        mesh.barrier()
+        torch.cuda.synchronize()
+        tower.run_tower.launches = 0
+        t0 = time.perf_counter()
+        games = play(generator)
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0, "launches": tower.run_tower.launches,
+                     "by_boards": shapes.by_boards}
+        shapes.by_boards = {}
+        if rank == 0:
+            torch.save(type(games)(*(x.cpu() for x in games)), os.path.join(out_dir, f"{name}.pt"))
 
     # --- data-parallel train steps against the single-process step -----------
     sound_all_reduce_grads = learner._all_reduce_grads
@@ -1078,36 +1108,79 @@ def dp_rank(rank, init_file, out_dir):
     dist.destroy_process_group()
 
 
-def join_ranks(ranks, seconds: float) -> None:
-    """Wait for spawned ranks; ``join`` raises when one failed (after ending
-    the others). Fails when they outlast ``seconds``."""
-    deadline = time.monotonic() + seconds
-    while not ranks.join(timeout=max(deadline - time.monotonic(), 0.0)):
-        if time.monotonic() >= deadline:
-            for p in ranks.processes:
-                p.kill()
-            fail(f"the ranks did not finish within {seconds} s")
+def run_dp_agents(out_dir):
+    """Start the two torchrun agents of [dp], each a node of ``per_node``
+    ranks running ``chip_smoke.py --dp-rank out_dir``, meeting through the
+    c10d rendezvous on a free local port, and wait for both. Fails, after
+    killing both agents and their ranks, when either exits non-zero or they
+    outlast ``DP['timeout']``: nothing retries with fewer ranks."""
+    import signal
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    agents, logs = [], []
+    for node in range(DP["nodes"]):
+        logs.append(os.path.join(out_dir, f"agent{node}.log"))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", str(DP["nodes"]),
+               "--nproc_per_node", str(DP["per_node"]), "--rdzv_backend", "c10d",
+               "--rdzv_endpoint", f"127.0.0.1:{port}", os.path.abspath(__file__), "--dp-rank", out_dir]
+        with open(logs[-1], "w") as fh:  # each agent in a session of its own: a kill takes its ranks
+            agents.append(subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT, cwd=ROOT,
+                                           start_new_session=True))
+    deadline = time.monotonic() + DP["timeout"]
+    try:  # until both exit, one fails or the time is up
+        while (any(agent.poll() is None for agent in agents) and not any(agent.returncode for agent in agents)
+               and time.monotonic() < deadline):
+            time.sleep(0.5)
+    finally:
+        for agent in agents:
+            if agent.poll() is None:
+                os.killpg(agent.pid, signal.SIGKILL)
+                agent.wait()
+    codes = [agent.returncode for agent in agents]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    for node, path in enumerate(logs):
+        with open(path) as fh:
+            text = fh.read()
+        with open(os.path.join(ROOT, "chiprun_out", f"chip_smoke_dp_agent{node}.log"), "w") as fh:
+            fh.write(text)
+        if any(codes):
+            log(f"[dp] agent {node} (exit {codes[node]}), the end of its log:\n{text[-3000:]}")
+    if any(codes):
+        fail(f"[dp] the agents exited with {codes} (killed after {DP['timeout']} s if negative)")
 
 
-def drive_dp(dev):
-    """Phase 11, [dp]: two ranks on the one card (gloo, spawned), checked."""
+def drive_dp(dev, net, shapes):
+    """Phase 11, [dp]: four ranks from two torchrun agents on the one card
+    (gloo), checked; first, one process's pools of as many blocks as
+    ranks, with noise off, to hold the ranks' gathered pools against."""
     import numpy as np
     import torch
-    import torch.multiprocessing as tmp
 
+    from connect4_tpu_torch.eval.evaluators import centre_evaluator_batched, make_net_evaluator
     from connect4_tpu_torch.training import checkpoint as ckpt
+    from connect4_tpu_torch.training.self_play import make_refill_play_fn
+    from connect4_tpu_torch.utils import make_generator
 
+    sp = DP["selfplay"]
+    one = {}
+    for name, evaluator in (("quiet_centre", centre_evaluator_batched), ("quiet_gen161", make_net_evaluator(net))):
+        play = make_refill_play_fn(evaluator, quiet_config(), sp["slots"], sp["games"], n_blocks=DP["world"],
+                                   device=dev)
+        out = play(make_generator(sp["seed"], dev))
+        one[name] = type(out)(*(x.cpu() for x in out))
+    shapes.take(f"dp reference, one process's {DP['world']}-block pool (not counted)")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out_dir:
         t0 = time.perf_counter()
-        ranks = tmp.spawn(dp_rank, args=(os.path.join(out_dir, "init"), out_dir), nprocs=DP["world"],
-                          join=False, start_method="spawn")
-        join_ranks(ranks, 900)
+        run_dp_agents(out_dir)
         seconds = time.perf_counter() - t0
         res = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(DP["world"])]
-        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_dp.json"), "w") as fh:
             json.dump(res, fh, indent=1, default=str)
-        games = torch.load(os.path.join(out_dir, "games.pt"), weights_only=False)
+        games = {name: torch.load(os.path.join(out_dir, f"{name}.pt"), weights_only=False)
+                 for name in ("selfplay", "quiet_centre", "quiet_gen161")}
         run = os.path.join(out_dir, "run")
         if ckpt.latest_generation(run) != 2:
             fail(f"[dp] the mesh generations left checkpoint {ckpt.latest_generation(run)}, expected 2")
@@ -1117,33 +1190,71 @@ def drive_dp(dev):
                     fail(f"[dp] generation {gen}: not every game finished")
     # print every line first, then fail on what is wrong
     problems = []
-    log(f"[dp] {DP['world']} ranks on {DP['device']} ({DP['backend']}): {[r['mesh'] for r in res]}, "
-        f"{seconds:.1f} s from spawn to exit (rank 0: self-play {res[0]['selfplay']['seconds']:.1f} s, "
+    log(f"[dp] {DP['world']} ranks from {DP['nodes']} torchrun agents on {DP['device']} ({DP['backend']}), "
+        f"{seconds:.1f} s from launch to exit (rank 0: self-play {res[0]['selfplay']['seconds']:.1f} s, "
+        f"noise off {res[0]['quiet_centre']['seconds']:.1f} + {res[0]['quiet_gen161']['seconds']:.1f} s, "
         f"train-step checks {res[0]['train_seconds']:.1f} s, generations "
         f"{sum(g['seconds'] for g in res[0]['generations']):.1f} s)")
-    sp = DP["selfplay"]
-    moves = replay_games(games)
-    if games.result.shape[0] != sp["games"] or not bool((games.result != 0).all()):
+    for r, rr in enumerate(res):
+        m = rr["mesh"]
+        log(f"[dp] rank {m['rank']}: local rank {m['local_rank']}, node {m['node']}, world {m['world']}, "
+            f"device {m['device']}, backend {m['backend']}")
+    # torchrun numbers a node's ranks contiguously: rank = node * per_node + local rank
+    where = [tuple(rr["mesh"][k] for k in ("rank", "local_rank", "node", "world", "device", "backend"))
+             for rr in res]
+    if where != [(r, r % DP["per_node"], r // DP["per_node"], DP["world"], DP["device"], DP["backend"])
+                 for r in range(DP["world"])]:
+        problems.append(f"the ranks do not form {DP['nodes']} nodes of {DP['per_node']}: "
+                        f"{[rr['mesh'] for rr in res]}")
+    moves = replay_games(games["selfplay"])
+    if games["selfplay"].result.shape[0] != sp["games"] or not bool((games["selfplay"].result != 0).all()):
         problems.append("sharded self-play: not every game finished")
-    half = sp["games"] // DP["world"]
-    if torch.equal(games.moves[:half, :6], games.moves[half:, :6]):
-        problems.append("both ranks played the same openings")
+    per = sp["games"] // DP["world"]
+    openings = [games["selfplay"].moves[r * per:(r + 1) * per, :6] for r in range(DP["world"])]
+    same = [(a, b) for a in range(DP["world"]) for b in range(a + 1, DP["world"])
+            if torch.equal(openings[a], openings[b])]
+    if same:
+        problems.append(f"ranks {same} played the same openings")
     launches = {"selfplay": 0, "generation": 0}
     by_boards = {}
     for r, rr in enumerate(res):
         if rr["plain_calls"]:
             problems.append(f"rank {r} entered the plain tower {rr['plain_calls']} times on the card")
-        paths = [("selfplay", rr["selfplay"])] + [("generation", g) for g in rr["generations"]]
-        for name, p in paths:
+        paths = ([("selfplay", "selfplay", rr["selfplay"]), ("selfplay noise off", "selfplay", rr["quiet_gen161"])]
+                 + [("generation", "generation", g) for g in rr["generations"]])
+        for name, key, p in paths:
             if p["launches"] == 0:
                 problems.append(f"rank {r} never launched the tower kernel in {name}")
-            launches[name] += p["launches"]
+            launches[key] += p["launches"]
             for b, n in check_shapes(f"dp rank {r} {name}", p["by_boards"]).items():
                 by_boards[b] = by_boards.get(b, 0) + n
+        if rr["quiet_centre"]["launches"]:
+            problems.append(f"rank {r} launched the tower kernel with the centre evaluator")
     log(f"[dp] sharded refill self-play, {sp['games']} games in {sp['slots']} slots (gen-161, K=8, "
-        f"{sp['simulations']} sims, noise on): {moves} moves replay on the host board; "
-        + ", ".join(f"rank {r} {rr['selfplay']['seconds']:.2f} s, {rr['selfplay']['launches']} tower launches"
-                    for r, rr in enumerate(res)))
+        f"{sp['simulations']} sims, noise on): {moves} moves replay on the host board, the {DP['world']} ranks' "
+        f"openings differ pairwise; " + ", ".join(
+            f"rank {r} {rr['selfplay']['seconds']:.2f} s, {rr['selfplay']['launches']} tower launches"
+            for r, rr in enumerate(res)))
+    compared = {}
+    for name, label in (("quiet_centre", "the centre evaluator"), ("quiet_gen161", "gen-161 through the tower kernel")):
+        got, want = games[name], one[name]
+        replay_games(got)
+        differ = int((~((got.moves == want.moves).all(1) & (got.length == want.length)
+                        & (got.result == want.result) & (got.planes == want.planes).flatten(1).all(1))).sum())
+        policy = (got.policies - want.policies).abs().max().item()
+        value = (got.move_values - want.move_values).abs().max().item()
+        # every game starts from the empty board: with noise off the pool may hold few distinct games
+        distinct = len({tuple(m[:n].tolist()) for m, n in zip(got.moves, got.length)})
+        compared[name] = {"games_differ": differ, "distinct_games": distinct, "policy_max_diff": policy,
+                          "move_value_max_diff": value}
+        log(f"[dp] noise off, {label}: the {DP['world']} ranks' gathered {sp['games']} games ({distinct} distinct) "
+            f"against one process's {DP['world']}-block pool on the card: {differ} games differ; |policy| max {policy:.3g}, "
+            f"|move value| max {value:.3g}" + (f"; tower launches by rank {[rr[name]['launches'] for rr in res]}"
+                                               if name == "quiet_gen161" else ""))
+        if name == "quiet_centre" and (differ or not bool((got.mask == want.mask).all()) or policy > 1e-5
+                                       or value > 1e-5):
+            problems.append(f"noise off, centre evaluator: the gathered pool differs from one process's "
+                            f"({differ} games, |policy| {policy:.3g}, |move value| {value:.3g}; limit 1e-5)")
     for dtype, tol in (("float32", TOL_TRAIN_F32), ("bfloat16", TOL_TRAIN_BF16)):
         tol = {**tol, "momentum": TOL_DP_MOMENTUM[dtype]}
         recs = [rr["train"][dtype] for rr in res]
@@ -1181,8 +1292,8 @@ def drive_dp(dev):
             problems.append(f"generation {i + 1}: losses not finite")
     if problems:
         fail("[dp] " + "; ".join(problems))
-    return {"config": DP, "seconds": seconds, "ranks": res, "moves": moves, "launches": launches,
-            "launches_by_boards": by_boards}
+    return {"config": DP, "seconds": seconds, "ranks": res, "moves": moves, "noise_off": compared,
+            "launches": launches, "launches_by_boards": by_boards}
 
 
 def nccl_one_rank(dev):
@@ -1350,6 +1461,9 @@ def supervisor_phase():
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of [dp], started by a torchrun agent
+        dp_rank(sys.argv[2])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU", file=sys.stderr)
         return 2
@@ -1565,7 +1679,7 @@ def main() -> int:
         # the supervisor ------------------------------------------------------
         seconds = {}
         for name, phase in (("scripts", lambda: scripts_phase(dev, shapes, run_dir)),
-                            ("dp", lambda: drive_dp(dev)), ("nccl", lambda: nccl_one_rank(dev)),
+                            ("dp", lambda: drive_dp(dev, net, shapes)), ("nccl", lambda: nccl_one_rank(dev)),
                             ("host", lambda: host_phase(dev)), ("supervisor", supervisor_phase)):
             t0 = time.perf_counter()
             report[name] = phase()

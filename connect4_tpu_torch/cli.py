@@ -6,9 +6,15 @@ Modes mirror the JAX package's CLI:
   colour); plays the packaged gen-161 net unless given a checkpoint.
 - ``training``: run the training loop from a Python config file defining
   ``config`` (a ``connect4_tpu_torch.config.AlphaZeroConfig``). Under
-  ``torchrun --nproc_per_node W`` (a config with ``mesh_shape=(W,)``) every
-  process joins the group and trains data parallel; ``--device cuda`` is
-  then ``cuda:<LOCAL_RANK>``.
+  torchrun every process joins the group (NCCL on cards, gloo with
+  ``--device cpu``) and trains data parallel, ``--device cuda`` being
+  ``cuda:<LOCAL_RANK>``: on one node ``torchrun --nproc_per_node W -m
+  connect4_tpu_torch.cli training -c cfg.py`` with ``mesh_shape=(W,)``; on
+  N nodes the same command on each node with ``--nnodes N --rdzv_backend
+  c10d --rdzv_endpoint HOST:PORT`` (one node's address) and
+  ``mesh_shape=(N*W,)``. Every node must see the same ``save_dir`` (a
+  shared file system): rank 0 writes the run there and every rank resumes
+  from it.
 - ``match``: head-to-head between two checkpoints (or the centre
   heuristic where no checkpoint directory is given). A checkpoint carries
   its net's architecture, so there are no width flags.

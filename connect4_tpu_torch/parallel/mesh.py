@@ -1,10 +1,13 @@
-"""Data parallelism over ``torch.distributed``: one process (rank) per card.
+"""Data parallelism over ``torch.distributed``: one process (rank) a card,
+on one or more nodes.
 
 The counterpart of ``connect4_tpu.parallel.mesh``. The JAX package shards
 the leading axis of games and batches over a 1-D device mesh and lets XLA
 insert the collectives; here each rank is a process of its own, launched by
-``torchrun --nproc_per_node W``, that plays its block of the games and
-trains on its rows of each batch, and the collectives are written out:
+``torchrun --nproc_per_node W`` on one node, or by ``torchrun --nnodes N
+--nproc_per_node W --rdzv_backend c10d --rdzv_endpoint HOST:PORT`` on each
+of N nodes (N x W ranks), that plays its block of the games and trains on
+its rows of each batch, and the collectives are written out:
 
 - self-play: rank r plays block r of the slot pool on its own card with no
   collective inside a wave; the ranks' outputs are gathered once at the end
@@ -14,8 +17,13 @@ trains on its rows of each batch, and the collectives are written out:
   statistics, the loss normalisers and the gradients are all-reduced
   (``models.net``, ``training.learner``).
 
-``Mesh`` carries what every collective needs: the process group, this
-rank, the world size, this rank's device and the backend. The backend is
+``Mesh`` carries what every collective needs and what a rank says of
+where it runs: the process group, this rank (global), its index on its node
+(torchrun's ``LOCAL_RANK``, which picks its card), the world size, this
+rank's device and the backend. The global rank decides which rank writes
+and seeds each rank's noise (``fork_generator``). A process joins the group
+once: under torchrun a second ``env://`` join after
+``destroy_process_group`` hangs in its first collective. The backend is
 named by the caller (``initialize_distributed``): NCCL when every rank has
 a card of its own, gloo on the CPU and where several ranks share one card,
 which NCCL refuses. Nothing retries a failed collective on another backend.
@@ -47,7 +55,8 @@ class Mesh:
 
     shape: Tuple[int, ...]
     group: object  # a torch.distributed ProcessGroup
-    rank: int
+    rank: int  # global: 0 writes the run's files
+    local_rank: int  # on this rank's node: picks the card (``local_device``)
     world_size: int
     device: torch.device  # this rank's device
     backend: str
@@ -106,13 +115,19 @@ def all_reduce_with_grad(tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _AllReduce.apply(tensor, mesh)
 
 
+def local_rank() -> int:
+    """This process's index among the ranks of its node: torchrun's
+    ``LOCAL_RANK``, 0 for a process that torchrun did not launch."""
+    return int(os.environ.get("LOCAL_RANK", "0"))
+
+
 def local_device(device: DeviceLike = None) -> torch.device:
     """This rank's device: ``cuda`` without an index (or None) means
-    ``cuda:<LOCAL_RANK>``, one card a rank as torchrun numbers them; a device
-    with an index, or the CPU, as given."""
+    ``cuda:<local_rank()>``, one card a rank as torchrun numbers them on each
+    node; a device with an index, or the CPU, as given."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        dev = torch.device("cuda", local_rank())
     return resolve_device(dev)
 
 
@@ -124,7 +139,8 @@ def initialize_distributed(
     world_size: Optional[int] = None,
 ) -> None:
     """Join the process group: by default from torchrun's environment
-    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``); a test
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, which
+    torchrun's rendezvous sets on every node alike); a test
     passes ``init_method`` (``file://...``), ``rank`` and ``world_size``.
     ``backend`` is ``"nccl"`` (one card a rank; ``device`` becomes the
     rank's current card) or ``"gloo"`` (CPU ranks, or several ranks on one
@@ -161,7 +177,7 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None, device: DeviceLike = None
     backend = str(dist.get_backend())
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError(f"the nccl backend needs a CUDA device, not {dev}")
-    return Mesh(shape, dist.group.WORLD, dist.get_rank(), world, dev, backend)
+    return Mesh(shape, dist.group.WORLD, dist.get_rank(), local_rank(), world, dev, backend)
 
 
 def _tensors(obj):

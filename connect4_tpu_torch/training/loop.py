@@ -9,11 +9,17 @@ run on ``device``.
 
 With ``config.mesh_shape = (W,)`` the loop runs data parallel on the W
 ranks of a ``torch.distributed`` group (``parallel.mesh``), every rank
-running this loop in a process of its own: each rank plays its block of
-the games (its own noise and openings), rank 0 writes the gathered
-generation, checkpoint and tables in the single-device layout, every rank
-trains on the window with the data-parallel step, and rank 0 alone
-evaluates and plays the gating match. The ranks share ``save_dir``.
+running this loop in a process of its own, on one node or several
+(``torchrun --nnodes N --nproc_per_node W/N --rdzv_backend c10d
+--rdzv_endpoint HOST:PORT -m connect4_tpu_torch.cli training``): each
+rank plays its block of the games (its own noise and openings), rank 0
+writes the gathered generation, checkpoint and tables in the
+single-device layout, every rank trains on the window with the
+data-parallel step, and rank 0 alone evaluates and plays the gating
+match. The ranks share ``save_dir``: on several nodes it must be one
+directory that every node sees, since every rank reads the window and
+resumes from rank 0's files (a rank that resumes at another generation
+than rank 0 raises).
 
 Differences from the JAX package, by design:
 - Checkpoints are torch state dicts (net + optimiser + generator state).

@@ -194,16 +194,17 @@ def _jax_case(seed):
     return leaves, (net, opt, jstate)
 
 
-def _jax_sharded_steps(net, opt, jstate, batches, weighted):
+def _jax_sharded_steps(net, opt, jstate, batches, weighted, devices=8):
     """Metrics and final state (as the port's arrays) of the JAX package's
-    data-parallel step over its 8 virtual CPU devices."""
+    data-parallel step over the first ``devices`` of its 8 virtual CPU
+    devices."""
     import jax
     import jax.numpy as jnp
 
     from connect4_tpu.parallel.mesh import make_mesh, replicate
     from connect4_tpu.parallel.sharded import make_sharded_train_step
 
-    mesh = make_mesh((8,))
+    mesh = make_mesh((devices,))
     step = make_sharded_train_step(net, opt, mesh, weighted=weighted)
     jstate = replicate(jstate, mesh)
     metrics = []
