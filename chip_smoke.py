@@ -16,9 +16,15 @@ fatal on failure:
    leaves, and 784 leaves for its K=16 player; B=261, as the JAX package's
    tests take it; B=1), with the
    packaged gen-161 net (F=64, fc 6, res 6, bf16). A block takes 3 boards,
-   so the last block holds 1, 2 or 3 boards over these shapes. The script
-   records the batch of every launch the paths make and fails if one was
-   not among the shapes compared.
+   so the last block holds 1, 2 or 3 boards over these shapes. Then, at
+   every width (``WIDTHS``: 4, 24, 48, 96, 128, 256, packed to 16, 32, 64,
+   128, 128, 256), a fresh net at full depth (fc 6, res 6) at B=4096, 512,
+   64 and 1, and at F=256 also at every shape of phase 8's generations
+   (``WIDE_BOARDS``): 0 elements may differ from
+   the emulated plain version on the same packed weights, and the padded
+   channels must be exactly 0. The script records the packed width and
+   batch of every launch the paths make and fails if a pair was not among
+   those compared.
    The tolerances are held against the plain version that emulates the
    tensor core's accumulate (and reproduces the kernel bit for bit); the
    errors against the plain version rounded to nearest, an independent
@@ -29,7 +35,10 @@ fatal on failure:
 3. time each kernel, its plain version and the cuDNN tower (a yardstick
    only: the port never calls it) at B=4096, 2048, 512, 392 and 64, beside
    the bound of each (the ``kernels`` line reports the batch that most
-   launches of the training generations have, B=2048, their leaf batch);
+   launches of the training generations have, B=2048, their leaf batch),
+   and with fresh nets at F=16, 32, 128 and 256 at B=4096, 2048, 512 and
+   64 (the plain version rounded to nearest only: its emulated form takes
+   tens of seconds at F=256);
 4. check the search and self-play on the card against the same code on
    the CPU with the deterministic centre evaluator;
 5. drive the self-play path: a generation through
@@ -56,7 +65,11 @@ fatal on failure:
    of each generation while its plain version was never entered;
 9. play gen-161 against the centre heuristic (64 simulations, 2-ply starts,
    both colours): a return under 0.5 is a fault;
-10. [scripts] the run and measurement tools of ``connect4_tpu_torch.scripts``
+10. [wide] phase 8's two generations (the second resumed in a new loop)
+    with a fresh net of 256 filters (``WIDE_NET``: fc 6, res 6, bf16), in a
+    directory of their own, with phase 8's checks; every launch must be at
+    F=256 and compared, and the plain tower is never entered;
+11. [scripts] the run and measurement tools of ``connect4_tpu_torch.scripts``
     at full width (``SCRIPTS``): ``reevaluate_run`` over phase 8's two
     generations, each row equal to the one the loop wrote within
     ``TOL_REEVALUATE``, and generation 2's rows on a cut of the sets equal
@@ -80,7 +93,7 @@ fatal on failure:
     measurement tools, ``measure_compile``, ``k_head_to_head``) must launch
     the kernel and the others must not, every batch they launch must have
     been compared, the plain tower is never entered;
-11. [dp] data parallelism with four ranks from two torchrun agents (two
+12. [dp] data parallelism with four ranks from two torchrun agents (two
     nodes of two ranks, ``--rdzv_backend c10d`` on a local port; each rank
     is this script re-entered as ``chip_smoke.py --dp-rank DIR``), all on
     ``cuda:0`` through gloo (NCCL refuses ranks that share a card); a rank
@@ -104,15 +117,15 @@ fatal on failure:
     at the depth of phase 8 (no match), then a resumed one, every rank
     starting at the same generation. Each rank's launches by batch go
     through the [shapes] check, and no rank may enter the plain tower;
-12. a one-rank NCCL group takes one data-parallel step, bit for bit the
+13. a one-rank NCCL group takes one data-parallel step, bit for bit the
     single-process step;
-13. [host] ``HostMCTS`` and ``GridSearch`` choose the tactic table's moves,
+14. [host] ``HostMCTS`` and ``GridSearch`` choose the tactic table's moves,
     and the batched search on the card agrees with ``HostMCTS``; the exact
     solver builds with g++ and agrees with exhaustive minimax on 300
     late-game positions of seeded random playouts;
-14. [supervisor] the supervisor runs ``cli training --device cuda
+15. [supervisor] the supervisor runs ``cli training --device cuda
     --generations 1`` on a tiny config; the child exits 0 with a checkpoint;
-15. print the ``kernels`` JSON line, the card's name and power limit, and
+16. print the ``kernels`` JSON line, the card's name and power limit, and
     last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
@@ -129,6 +142,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -146,6 +160,16 @@ TOL_TOWER_MEAN = 2e-3  # mean |diff| of the bf16 tower output
 # positions, whatever the chain), is held to the 5e-2 that the port's net is
 # held to against the JAX package's (tests/test_torch_net.py).
 TOL_VALUE_NEAREST = 5e-2
+# [compare] at every width holds the tower's mean against the form rounded
+# to nearest to TOL_TOWER_MEAN or, where that is larger, TOL_NEAREST_SPREAD
+# times the mean distance between two forms that both round to nearest (the
+# plain version summed as one chain a layer and as one chain a tap) on the
+# same boards. In a random net of 256 filters and six residual blocks one
+# flipped bf16 rounding spreads to about one unit in the last place of most
+# later outputs, so a change of summation order alone moves a single
+# board's mean by about TOL_TOWER_MEAN (the [compare] lines print it as
+# "spread"); the kernel is held to no more than twice that.
+TOL_NEAREST_SPREAD = 2.0
 
 SMOKE = dict(slots=512, games=512, simulations=64, parallel_sims=8, seed=0)
 
@@ -169,6 +193,22 @@ GENERATION = dict(
     games=512, slots=256, simulations=64, parallel_sims=8, batch_size=4096, epochs=5,
 )
 
+# [compare] at every width: a fresh net at full depth (fc 6, res 6) of each
+# of these widths, which ``tower.pack_weights`` pads to 16, 32, 64, 128, 128
+# and 256 filters; held at WIDTH_BOARDS, and the [wide] phase's width also at
+# every batch phase 8's generations launch (a 256-slot pool at K=8 draining
+# to 64 slots, and the match's 49 roots and 392 leaves).
+WIDTHS = (4, 24, 48, 96, 128, 256)
+WIDTH_BOARDS = (4096, 512, 64, 1)
+WIDE_BOARDS = (4096, 2048, 1024, 512, 392, 256, 128, 64, 49, 1)
+# [time] of the other instantiations (F=64 is gen-161's, phase 3), each with
+# a fresh net at full depth
+TIME_WIDTHS = (16, 32, 128, 256)
+WIDE_TIME_BOARDS = (4096, 2048, 512, 64)
+# [wide]: two training generations of phase 8's depth with a fresh net of
+# 256 filters, the width of AlphaGo Zero's and AlphaZero's towers
+WIDE_NET = dict(filters=256, n_fc_layers=6, n_residuals=6, compute_dtype="bfloat16")
+
 # Stated limits of the learner on the card against the CPU after three steps
 # at batch 512 (phase 6). float32: IEEE float32 on both, summed in different
 # orders. bf16: both round every conv output to bf16, cuDNN and the CPU sum
@@ -191,39 +231,64 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+# (packed width, batch) pairs the kernel was held against its plain version
+# at; filled by [compare], read by every [shapes] check
+COMPARED = set()
+
+
 class LaunchShapes:
-    """Counts the tower kernel's launches by batch (boards) while a path is
-    driven, by standing in front of ``tower._tower_cuda``. ``check`` fails
-    when a path launched a shape that was not compared with the plain
-    version."""
+    """Counts the tower kernel's launches by packed width and batch (boards)
+    while a path is driven, by standing in front of ``tower._tower_cuda``.
+    ``check`` fails when a path launched a (width, batch) that was not
+    compared with the plain version."""
 
     def __init__(self, tower):
-        self.by_boards = {}
+        self.by_width = {}
         launch = tower._tower_cuda
 
         def counted(packed, x2d, chain=None):
+            per = self.by_width.setdefault(packed["conv1_w"].shape[1], {})
             boards = x2d.shape[0] // 42
-            self.by_boards[boards] = self.by_boards.get(boards, 0) + 1
+            per[boards] = per.get(boards, 0) + 1
             return launch(packed, x2d, chain)
 
         tower._tower_cuda = counted
 
     def take(self, path: str):
-        """The launches by batch since the last call, checked."""
-        seen, self.by_boards = self.by_boards, {}
+        """The launches ``{width: {batch: n}}`` since the last call, checked."""
+        seen, self.by_width = self.by_width, {}
         return check_shapes(path, seen)
 
 
 def check_shapes(path: str, seen: dict) -> dict:
-    """Print a path's tower launches by batch; fail on a batch that was
-    not held against the plain version."""
-    seen = dict(sorted(seen.items(), reverse=True))
-    log(f"[shapes] {path}: tower kernel launches by batch {seen}")
-    missing = sorted(set(seen) - set(COMPARE_BOARDS))
+    """Print a path's tower launches by packed width and batch; fail on a
+    pair that was not held against the plain version."""
+    seen = {int(f): dict(sorted(((int(b), n) for b, n in per.items()), reverse=True))
+            for f, per in sorted(seen.items(), key=lambda kv: int(kv[0]))}
+    log(f"[shapes] {path}: tower kernel launches by width and batch {seen}")
+    missing = sorted((f, b) for f, per in seen.items() for b in per if (f, b) not in COMPARED)
     if missing:
-        fail(f"{path} launched the tower kernel at B={missing}, "
+        fail(f"{path} launched the tower kernel at (F, B) = {missing}, "
              f"which was not held against the plain version")
     return seen
+
+
+def add_launches(total: dict, seen: dict) -> dict:
+    """``seen`` ({width: {batch: n}}) added into ``total``, which is returned."""
+    for f, per in seen.items():
+        into = total.setdefault(f, {})
+        for b, n in per.items():
+            into[b] = into.get(b, 0) + n
+    return total
+
+
+def by_batch(seen: dict) -> dict:
+    """Launches by batch, summed over the widths."""
+    out = {}
+    for per in seen.values():
+        for b, n in per.items():
+            out[b] = out.get(b, 0) + n
+    return dict(sorted(out.items(), reverse=True))
 
 
 def random_positions(n: int, generator, device):
@@ -281,14 +346,150 @@ def cudnn_tower(folded, config):
     return run
 
 
+def board_rows(n: int, generator, device):
+    """``[n*42, 3]`` float32 tower input rows of ``n`` random positions."""
+    from connect4_tpu_torch.env.core import to_planes
+
+    return (to_planes(random_positions(n, generator, device)).permute(0, 2, 3, 1)
+            .reshape(n * 42, 3).float().contiguous())
+
+
+def compare_kernel(tower, packed, x2d, chain=None) -> dict:
+    """Error sets of the kernel at ``chain`` against the plain version
+    summed in the same order on the same packed weights: ``model`` with the
+    tensor core's accumulate emulated, ``nearest`` rounded to nearest;
+    ``padded_zero``: the channels the packing added are all 0; ``spread``:
+    the mean and largest distance between the form rounded to nearest and
+    the same form summed as one chain a tap."""
+    import torch
+
+    with torch.no_grad():
+        tk = tower.run_tower(packed, x2d, chain=chain)
+        torch.cuda.synchronize()
+        vk, pk = tower.heads(packed, tk)
+        sets = {"finite": bool(torch.isfinite(tk.float()).all()),
+                "padded_zero": bool((tk[:, packed["vh_conv_w"].shape[0]:] == 0).all())}
+        for name, tensor_core in (("model", True), ("nearest", False)):
+            tp = tower.tower_plain(packed, x2d, chain or tower.CHAIN, tensor_core)
+            vp, pp = tower.heads(packed, tp)
+            d = (tk.float() - tp.float()).abs()
+            sets[name] = {
+                "differ": int((tk != tp).sum()), "tower_max": d.max().item(), "tower_mean": d.mean().item(),
+                "value_max": (vk - vp).abs().max().item(),
+                "prior_max": (pk - pp).abs().max().item(),
+            }
+        d = (tp.float() - tower.tower_plain(packed, x2d, "tap").float()).abs()
+        sets["spread"] = {"tower_max": d.max().item(), "tower_mean": d.mean().item()}
+    return sets
+
+
+def show(sets: dict) -> str:
+    return "; ".join(
+        f"vs {name}: {e['differ']} differ, |tower| max {e['tower_max']:.6g} mean {e['tower_mean']:.3g}"
+        f" |value| max {e['value_max']:.6g} |prior| max {e['prior_max']:.6g}"
+        for name, e in ((n, sets[n]) for n in ("model", "nearest")))
+
+
+def check_compare(where: str, e: dict, tower_mean_nearest: float = TOL_TOWER_MEAN):
+    """Fail unless the kernel's output is finite, its padded channels are 0,
+    it equals the emulated plain version in every element, and both plain
+    versions are within the stated tolerances (the tower's mean against the
+    form rounded to nearest within ``tower_mean_nearest``)."""
+    if not e["finite"]:
+        fail(f"kernel output not finite at {where}")
+    if not e["padded_zero"]:
+        fail(f"a padded channel of the kernel's output is not 0 at {where}")
+    m, n = e["model"], e["nearest"]
+    if m["differ"] or max(m["value_max"], m["prior_max"]) > TOL_VALUE_PRIOR or m["tower_mean"] > TOL_TOWER_MEAN:
+        fail(f"kernel disagrees with the plain tower at {where}: {m} (0 elements may differ; "
+             f"tolerance value/prior {TOL_VALUE_PRIOR}, tower mean {TOL_TOWER_MEAN})")
+    if (n["value_max"] > TOL_VALUE_NEAREST or n["prior_max"] > TOL_VALUE_PRIOR
+            or n["tower_mean"] > tower_mean_nearest):
+        fail(f"kernel disagrees with the plain tower rounded to nearest at {where}: {n} "
+             f"(tolerance value {TOL_VALUE_NEAREST}, prior {TOL_VALUE_PRIOR}, "
+             f"tower mean {tower_mean_nearest:.6g})")
+
+
+def fresh_folded(f: int, dev):
+    """``(config, folded, packed)`` of a fresh net of ``f`` filters at
+    ``WIDE_NET``'s depth, seeded by its width."""
+    import torch
+
+    from connect4_tpu_torch.config import NetConfig
+    from connect4_tpu_torch.models import tower
+    from connect4_tpu_torch.models.net import fold_bn_params, init_net
+
+    config = NetConfig(**{**WIDE_NET, "filters": f})
+    folded = fold_bn_params(init_net(config, torch.Generator().manual_seed(f), device=dev))
+    return config, folded, tower.pack_weights(config, folded)
+
+
+def compare_widths(dev, generator):
+    """[compare] at every width of ``WIDTHS``: a fresh folded net at full
+    depth, its packed (padded) weights through the kernel and both plain
+    versions. Returns the error sets ``{F: {B: sets}}``."""
+    from connect4_tpu_torch.models import tower
+
+    errs = {}
+    for f in WIDTHS:
+        t0 = time.perf_counter()
+        _, _, packed = fresh_folded(f, dev)
+        fp = packed["conv1_w"].shape[1]
+        errs[f] = {}
+        for b in WIDE_BOARDS if f == WIDE_NET["filters"] else WIDTH_BOARDS:
+            e = errs[f][b] = compare_kernel(tower, packed, board_rows(b, generator, dev))
+            limit = max(TOL_TOWER_MEAN, TOL_NEAREST_SPREAD * e["spread"]["tower_mean"])
+            log(f"[compare] F={f} (packed {fp}) B={b}: padded channels all 0 {e['padded_zero']}; {show(e)}; "
+                f"spread of the nearest form: |tower| max {e['spread']['tower_max']:.6g} "
+                f"mean {e['spread']['tower_mean']:.3g} (tower mean limit {limit:.3g})")
+            check_compare(f"F={f} B={b}", e, limit)
+            COMPARED.add((fp, b))
+        log(f"[compare] F={f}: {time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+def time_widths(dev, generator):
+    """[time] at the widths of ``TIME_WIDTHS``: the kernel, the plain
+    version (rounded to nearest) and the cuDNN tower (the yardstick; the
+    port never calls it) at ``WIDE_TIME_BOARDS``, each beside the bound."""
+    import torch
+
+    from connect4_tpu_torch.models import tower
+
+    out = {}
+    for f in TIME_WIDTHS:
+        config, folded, packed = fresh_folded(f, dev)
+        lib_tower = cudnn_tower(folded, config)
+        out[f] = {}
+        with torch.no_grad():
+            for b in WIDE_TIME_BOARDS:
+                x2d = board_rows(b, generator, dev)
+                nhwc = x2d.reshape(b, 6, 7, config.channels)
+                bound_ms, bound_by, flops, nbytes = tower.tower_bound(config, b)
+                t = out[f][b] = {
+                    "ms": timed_ms(lambda: tower.run_tower(packed, x2d)),
+                    "plain_ms": timed_ms(lambda: tower.tower_plain(packed, x2d), iters=3, warmup=1),
+                    "library_ms": timed_ms(lambda: lib_tower(nhwc)),
+                    "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+                }
+                t["ms_again"] = timed_ms(lambda: tower.run_tower(packed, x2d))
+                log(f"[time] tower F={f} B={b}: kernel {t['ms']:.4f} ms (again {t['ms_again']:.4f}), "
+                    f"plain {t['plain_ms']:.4f} ms, cuDNN {t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                    f"by {bound_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.2f} MB), "
+                    f"{flops / t['ms'] / 1e9:.1f} TFLOP/s, {100 * bound_ms / t['ms']:.1f}% of the bound")
+    return out
+
+
 def replay_games(out) -> int:
     """Replay every recorded game on the host board: legal moves, the
-    recorded pre-move planes, the recorded result. Returns the move count."""
+    recorded pre-move planes (where ``out`` has them), the recorded result.
+    Returns the move count."""
     import numpy as np
 
     from connect4_tpu_torch.env.host_board import HostBoard
 
-    moves, planes = out.moves.cpu().numpy(), out.planes.cpu().numpy()
+    moves = out.moves.cpu().numpy()
+    planes = out.planes.cpu().numpy() if hasattr(out, "planes") else None
     length, result = out.length.cpu().numpy(), out.result.cpu().numpy()
     mask = out.mask.cpu().numpy()
     total = 0
@@ -297,7 +498,7 @@ def replay_games(out) -> int:
             fail(f"game {g}: ply mask is not a prefix")
         board = HostBoard()
         for t in range(int(length[g])):
-            if not np.array_equal(planes[g, t], board.to_planes().astype(np.uint8)):
+            if planes is not None and not np.array_equal(planes[g, t], board.to_planes().astype(np.uint8)):
                 fail(f"game {g} ply {t}: recorded planes differ from the replay")
             mv = int(moves[g, t])
             if mv not in board.valid_moves:
@@ -384,10 +585,11 @@ def time_train_step(dev, generator):
     return out
 
 
-def drive_generations(dev, shapes, save_dir):
-    """Phase 8: two generations of ``TrainingLoop`` at full width in
-    ``save_dir``, the second in a new loop that resumes from the first
-    one's checkpoint. The run stays for the [scripts] phase."""
+def drive_generations(dev, shapes, save_dir, net=GENERATION["net"], label="generation"):
+    """Phase 8 (and [wide] with ``net=WIDE_NET``): two generations of
+    ``TrainingLoop`` at ``GENERATION``'s depth with a fresh net of widths
+    ``net`` in ``save_dir``, the second in a new loop that resumes from the
+    first one's checkpoint. Phase 8's run stays for the [scripts] phase."""
     import numpy as np
     import torch
 
@@ -412,7 +614,7 @@ def drive_generations(dev, shapes, save_dir):
     with watching_plain(tower) as plain_calls:
         config = AlphaZeroConfig(
             model_config=ModelConfig(
-                net_config=NetConfig(**G["net"]),
+                net_config=NetConfig(**net),
                 batch_size=G["batch_size"], n_training_epochs=G["epochs"],
             ),
             storage_config=StorageConfig(save_dir=save_dir),
@@ -423,12 +625,12 @@ def drive_generations(dev, shapes, save_dir):
         for gen in (1, 2):
             loop = TrainingLoop(config, device=dev)  # generation 2: a new loop, resumed
             if loop.gen != gen:
-                fail(f"[generation] the loop starts at generation {loop.gen}, expected {gen}")
+                fail(f"[{label}] the loop starts at generation {loop.gen}, expected {gen}")
             before = {k: v.clone() for k, v in loop.state.net.state_dict().items()}
             if previous is not None:
                 for k, v in previous.items():
                     if not torch.equal(v, before[k]):
-                        fail(f"[generation] resumed {k} differs from the saved one")
+                        fail(f"[{label}] resumed {k} differs from the saved one")
             counts = {"selfplay": 0, "match": 0}
             loop._generate_games = counting(loop._generate_games, counts, "selfplay")
             loop._match = counting(loop._match, counts, "match")
@@ -442,46 +644,53 @@ def drive_generations(dev, shapes, save_dir):
             unchanged = [k for k in before if k not in changed and not k.endswith("num_batches_tracked")]
             losses = loop.train_losses
             if not losses or not all(np.isfinite(losses)):
-                fail(f"[generation {gen}] training losses not finite: {losses}")
+                fail(f"[{label} {gen}] training losses not finite: {losses}")
             if unchanged:
-                fail(f"[generation {gen}] training left these unchanged: {unchanged}")
+                fail(f"[{label} {gen}] training left these unchanged: {unchanged}")
             if not all(bool(torch.isfinite(v).all()) for v in previous.values()):
-                fail(f"[generation {gen}] a parameter or statistic is not finite")
+                fail(f"[{label} {gen}] a parameter or statistic is not finite")
             if counts["selfplay"] == 0 or counts["match"] == 0:
-                fail(f"[generation {gen}] tower kernel launches {counts}: a phase never launched it")
+                fail(f"[{label} {gen}] tower kernel launches {counts}: a phase never launched it")
             if plain_calls:
-                fail(f"[generation {gen}] the plain tower was entered {len(plain_calls)} times on the card")
+                fail(f"[{label} {gen}] the plain tower was entered {len(plain_calls)} times on the card")
             planes, values, _ = replay.load_window(save_dir, gen)
             if ckpt.latest_generation(save_dir) != gen or not os.path.exists(
                     os.path.join(save_dir, str(gen), "ckpt", ckpt.FILE_NAME)):
-                fail(f"[generation {gen}] no checkpoint")
+                fail(f"[{label} {gen}] no checkpoint")
             match = load_table(save_dir, "match_results")[-1]
             rows8, rows7 = load_table(save_dir, "8ply"), load_table(save_dir, "7ply")
             if len(rows8) != gen or len(rows7) != gen:
-                fail(f"[generation {gen}] benchmark tables hold {len(rows8)} and {len(rows7)} rows")
+                fail(f"[{label} {gen}] benchmark tables hold {len(rows8)} and {len(rows7)} rows")
             with np.load(os.path.join(save_dir, str(gen), "games.npz")) as games:
                 moves = int(games["mask"].sum())
                 if not (games["result"] != 0).all() or games["result"].shape[0] != G["games"]:
-                    fail(f"[generation {gen}] not every game finished")
+                    fail(f"[{label} {gen}] not every game finished")
+                records = SimpleNamespace(**{k: torch.from_numpy(games[k]) for k in ("moves", "length", "result", "mask")})
+            if replay_games(records) != moves:
+                fail(f"[{label} {gen}] the games' lengths do not add up to their moves")
             phases = dict(loop.timer.seconds)
             info = {
                 "generation": gen, "seconds": seconds, "phases": phases, "moves": moves,
                 "moves_per_s": moves / phases["generate"], "positions": int(len(values)),
                 "train_steps": len(losses), "first_loss": losses[0], "last_loss": losses[-1],
                 "match": match, "launches": dict(counts),
-                "launches_by_boards": shapes.take(f"generation {gen}"),
+                "launches_by_width": shapes.take(f"{label} {gen}"),
                 "8ply": {k: rows8[-1][k] for k in ("Average loss", "Accuracy")},
                 "7ply": {k: rows7[-1][k] for k in ("Average loss", "Accuracy", "prior Accuracy")},
             }
+            width = tower.kernel_width(net["filters"])
+            if set(info["launches_by_width"]) != {width}:
+                fail(f"[{label} {gen}] launches by width {info['launches_by_width']}: expected F={width} only")
             generations.append(info)
-            log(f"[generation] {gen}{' (resumed in a new loop)' if gen == 2 else ''}: {seconds:.2f} s = "
+            log(f"[{label}] {gen}{' (resumed in a new loop)' if gen == 2 else ''}: {seconds:.2f} s = "
                 + ", ".join(f"{k} {v:.2f}" for k, v in phases.items())
                 + f"; {moves} moves, {info['moves_per_s']:.1f} moves/s; {len(values)} positions, "
-                f"{len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; match vs centre "
+                f"{len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; every game replays on the "
+                f"host board; match vs centre "
                 f"{match['wins']}-{match['draws']}-{match['losses']} (return {match['return']:.3f}); "
                 f"tower kernel launches: self-play {counts['selfplay']}, match {counts['match']}; "
                 f"plain tower entered {len(plain_calls)} times")
-    return {"config": G, "generations": generations}
+    return {"config": {**G, "net": net}, "generations": generations}
 
 
 @contextlib.contextmanager
@@ -503,6 +712,13 @@ def watching_plain(tower):
         tower.tower_plain = plain
 
 
+def wide_phase(dev, shapes):
+    """[wide]: phase 8's two generations with a fresh net of ``WIDE_NET``'s
+    widths (256 filters) in a directory of their own."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as save_dir:
+        return drive_generations(dev, shapes, save_dir, net=WIDE_NET, label="wide")
+
+
 def gen161_match(net, dev, shapes):
     """Phase 9: the packaged net against the centre heuristic."""
     from connect4_tpu_torch.config import MCTSConfig
@@ -520,7 +736,7 @@ def gen161_match(net, dev, shapes):
     )
     result = {**result, "seconds": time.perf_counter() - t0,
               "launches": tower.run_tower.launches - before,
-              "launches_by_boards": shapes.take("match")}
+              "launches_by_width": shapes.take("match")}
     log(f"[match] gen161 vs centre, 64 simulations, 98 games: {result['wins']} wins, {result['draws']} draws, "
         f"{result['losses']} losses, return {result['return']:.3f} in {result['seconds']:.1f} s, "
         f"tower kernel launches {result['launches']}")
@@ -608,7 +824,7 @@ def reevaluate_card_and_cpu(reevaluate_run, run_dir, data_dir, tmp, dev):
 
 
 def scripts_phase(dev, shapes, run_dir):
-    """Phase 10, [scripts]: every tool at full width on the card through
+    """Phase 11, [scripts]: every tool at full width on the card through
     its plain function: ``reevaluate_run`` over the two phase-8
     generations (each row equal to the loop's own within TOL_REEVALUATE, and
     generation 2's rows on a cut of the sets equal to the CPU's within
@@ -654,7 +870,7 @@ def scripts_phase(dev, shapes, run_dir):
 
     P = SCRIPTS
     data_dir = StorageConfig().data_dir
-    out, launches, by_boards = {}, {}, {}
+    out, launches, by_width = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_scripts_") as tmp, watching_plain(tower) as plain_calls:
         position = os.path.join(tmp, "position.txt")
         with open(position, "w") as fh:
@@ -714,16 +930,14 @@ def scripts_phase(dev, shapes, run_dir):
             torch.cuda.synchronize()
             seconds[name] = time.perf_counter() - t0
             launches[name] = tower.run_tower.launches
-            seen = [shapes.take(f"scripts {name}")]
+            add_launches(by_width, shapes.take(f"scripts {name}"))
             if name == "measure_compile":
                 # the cold phases ran in a child process, which counted its
-                # own launches by batch where the kernel was launched
+                # own launches by batch where the kernel was launched, all
+                # at the packed width of the net it made
                 launches[name] += out[name]["launches"]
-                seen.append(check_shapes("scripts measure_compile (child process)",
-                                         out[name]["launches_by_boards"]))
-            for part in seen:
-                for b, n in part.items():
-                    by_boards[b] = by_boards.get(b, 0) + n
+                child = {tower.kernel_width(out[name]["filters"]): out[name]["launches_by_boards"]}
+                add_launches(by_width, check_shapes("scripts measure_compile (child process)", child))
             if launches_kernel != (launches[name] > 0):
                 fail(f"[scripts] {name} launched the tower kernel {launches[name]} times")
             if plain_calls:
@@ -858,7 +1072,7 @@ def scripts_phase(dev, shapes, run_dir):
         problems.append(f"selfplay_breakdown or profile_search: {finite}")
     if problems:
         fail("[scripts] " + "; ".join(problems))
-    return {"config": SCRIPTS, "seconds": seconds, "launches": launches, "launches_by_boards": by_boards,
+    return {"config": SCRIPTS, "seconds": seconds, "launches": launches, "launches_by_width": by_width,
             "reevaluate_max_diff": reeval_diff, "reevaluate_cpu_max_diff": cpu_diff, "results": {
                 k: r for k, r in out.items() if k not in ("reevaluate_run", "finalize_fullset")} | {
                 "reevaluate_run": {k: reeval[k] for k in ("generations", "sets", "curves")},
@@ -995,8 +1209,8 @@ def dp_rank(out_dir):
         games = play(generator)
         torch.cuda.synchronize()
         out[name] = {"seconds": time.perf_counter() - t0, "launches": tower.run_tower.launches,
-                     "by_boards": shapes.by_boards}
-        shapes.by_boards = {}
+                     "by_width": shapes.by_width}
+        shapes.by_width = {}
         if rank == 0:
             torch.save(type(games)(*(x.cpu() for x in games)), os.path.join(out_dir, f"{name}.pt"))
 
@@ -1098,11 +1312,11 @@ def dp_rank(out_dir):
         out["generations"].append({
             "generation": gen, "started_at": start, "seconds": time.perf_counter() - t0,
             "phases": dict(loop.timer.seconds), "launches": tower.run_tower.launches,
-            "by_boards": shapes.by_boards, "steps": len(loop.train_losses),
+            "by_width": shapes.by_width, "steps": len(loop.train_losses),
             "first_loss": loop.train_losses[0], "last_loss": loop.train_losses[-1],
             "replicas_equal": replicas_equal(loop.state),
         })
-        shapes.by_boards = {}
+        shapes.by_width = {}
     out["plain_calls"] = len(plain_calls)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
@@ -1153,7 +1367,7 @@ def run_dp_agents(out_dir):
 
 
 def drive_dp(dev, net, shapes):
-    """Phase 11, [dp]: four ranks from two torchrun agents on the one card
+    """Phase 12, [dp]: four ranks from two torchrun agents on the one card
     (gloo), checked; first, one process's pools of as many blocks as
     ranks, with noise off, to hold the ranks' gathered pools against."""
     import numpy as np
@@ -1216,7 +1430,7 @@ def drive_dp(dev, net, shapes):
     if same:
         problems.append(f"ranks {same} played the same openings")
     launches = {"selfplay": 0, "generation": 0}
-    by_boards = {}
+    by_width = {}
     for r, rr in enumerate(res):
         if rr["plain_calls"]:
             problems.append(f"rank {r} entered the plain tower {rr['plain_calls']} times on the card")
@@ -1226,8 +1440,7 @@ def drive_dp(dev, net, shapes):
             if p["launches"] == 0:
                 problems.append(f"rank {r} never launched the tower kernel in {name}")
             launches[key] += p["launches"]
-            for b, n in check_shapes(f"dp rank {r} {name}", p["by_boards"]).items():
-                by_boards[b] = by_boards.get(b, 0) + n
+            add_launches(by_width, check_shapes(f"dp rank {r} {name}", p["by_width"]))
         if rr["quiet_centre"]["launches"]:
             problems.append(f"rank {r} launched the tower kernel with the centre evaluator")
     log(f"[dp] sharded refill self-play, {sp['games']} games in {sp['slots']} slots (gen-161, K=8, "
@@ -1293,11 +1506,11 @@ def drive_dp(dev, net, shapes):
     if problems:
         fail("[dp] " + "; ".join(problems))
     return {"config": DP, "seconds": seconds, "ranks": res, "moves": moves, "noise_off": compared,
-            "launches": launches, "launches_by_boards": by_boards}
+            "launches": launches, "launches_by_width": by_width}
 
 
 def nccl_one_rank(dev):
-    """Phase 12: a one-rank NCCL group takes one data-parallel step, which
+    """Phase 13: a one-rank NCCL group takes one data-parallel step, which
     must equal the single-process step bit for bit (with cuDNN's
     deterministic algorithms, so that two runs of one step agree)."""
     import torch
@@ -1346,7 +1559,7 @@ TACTICS = [
 
 
 def host_phase(dev):
-    """Phase 13, [host]: the reference searches choose the tactic table's
+    """Phase 14, [host]: the reference searches choose the tactic table's
     moves and the batched search on the card agrees with the host MCTS;
     the solver builds with g++ and agrees with exhaustive minimax on
     late-game positions of seeded random playouts."""
@@ -1419,7 +1632,7 @@ def host_phase(dev):
 
 
 def supervisor_phase():
-    """Phase 14, [supervisor]: the watchdog runs one generation of the
+    """Phase 15, [supervisor]: the watchdog runs one generation of the
     training CLI on the card (a tiny float32 net, 8 games, no match) and the
     child's checkpoint exists."""
     from connect4_tpu_torch.training import checkpoint as ckpt
@@ -1508,57 +1721,25 @@ def main() -> int:
         log(f"[tile] B={b}: {tb} boards a block, {blocks} blocks on {n_sms} SMs (chain={tower.CHAIN})")
     report["tiles"] = plans
 
-    def compare(x2d, chain):
-        """Error sets of the kernel at ``chain`` against the plain version
-        summed in the same order: ``model`` with the tensor core's
-        accumulate emulated, ``nearest`` rounded to nearest."""
-        with torch.no_grad():
-            tk = tower.run_tower(packed, x2d, chain=chain)
-            torch.cuda.synchronize()
-            vk, pk = tower.heads(packed, tk)
-            sets = {"finite": bool(torch.isfinite(tk.float()).all())}
-            for name, tensor_core in (("model", True), ("nearest", False)):
-                tp = tower.tower_plain(packed, x2d, chain or tower.CHAIN, tensor_core)
-                vp, pp = tower.heads(packed, tp)
-                d = (tk.float() - tp.float()).abs()
-                sets[name] = {
-                    "differ": int((tk != tp).sum()), "tower_max": d.max().item(), "tower_mean": d.mean().item(),
-                    "value_max": (vk - vp).abs().max().item(),
-                    "prior_max": (pk - pp).abs().max().item(),
-                }
-        return sets
-
-    def show(sets):
-        return "; ".join(
-            f"vs {name}: {e['differ']} differ, |tower| max {e['tower_max']:.6g} mean {e['tower_mean']:.3g}"
-            f" |value| max {e['value_max']:.6g} |prior| max {e['prior_max']:.6g}"
-            for name, e in ((n, sets[n]) for n in ("model", "nearest")))
-
     errs, chain_errs = {}, {}
     for b in COMPARE_BOARDS:
-        nhwc = to_planes(random_positions(b, gen, dev)).permute(0, 2, 3, 1)
-        x2d = nhwc.reshape(b * 42, config.channels).float().contiguous()
-        e = errs[b] = compare(x2d, None)  # the shipped kernel, as the main path calls it
+        x2d = board_rows(b, gen, dev)
+        e = errs[b] = compare_kernel(tower, packed, x2d)  # the shipped kernel, as the main path calls it
         log(f"[compare] tower B={b}: {show(e)}")
-        if not e["finite"]:
-            fail(f"kernel output not finite at B={b}")
-        m, n = e["model"], e["nearest"]
-        if max(m["value_max"], m["prior_max"]) > TOL_VALUE_PRIOR or m["tower_mean"] > TOL_TOWER_MEAN:
-            fail(f"kernel disagrees with the plain tower at B={b}: {m} "
-                 f"(tolerance value/prior {TOL_VALUE_PRIOR}, tower mean {TOL_TOWER_MEAN})")
-        if (n["value_max"] > TOL_VALUE_NEAREST or n["prior_max"] > TOL_VALUE_PRIOR
-                or n["tower_mean"] > TOL_TOWER_MEAN):
-            fail(f"kernel disagrees with the plain tower rounded to nearest at B={b}: {n} "
-                 f"(tolerance value {TOL_VALUE_NEAREST}, prior {TOL_VALUE_PRIOR}, "
-                 f"tower mean {TOL_TOWER_MEAN})")
+        check_compare(f"B={b}", e)
+        COMPARED.add((tower.kernel_width(config.filters), b))
         if b in (4096, 261):
             # the chain lengths that were not shipped, for the record only
             for chain in tower.CHAINS:
-                ce = e if chain == tower.CHAIN else compare(x2d, chain)
+                ce = e if chain == tower.CHAIN else compare_kernel(tower, packed, x2d, chain)
                 chain_errs[f"{chain}@{b}"] = ce
                 log(f"[compare] chain={chain}{' (shipped)' if chain == tower.CHAIN else ''} B={b}: {show(ce)}")
     report["compare"] = errs
     report["compare_chains"] = chain_errs
+    t0 = time.perf_counter()
+    width_errs = compare_widths(dev, gen)
+    report["compare_widths"] = width_errs
+    log(f"[compare] every width: {time.perf_counter() - t0:.1f} s")
 
     # --- 3. times -----------------------------------------------------------
     lib_tower = cudnn_tower(folded, config)
@@ -1572,8 +1753,10 @@ def main() -> int:
             t = {
                 "ms": timed_ms(lambda: tower.run_tower(packed, x2d)),
                 "plain_ms": timed_ms(lambda: tower.tower_plain(packed, x2d), iters=5),
+                # one call: it takes seconds, so a warm-up or a second call
+                # would only spend the script's time
                 "plain_model_ms": timed_ms(
-                    lambda: tower.tower_plain(packed, x2d, tensor_core=True), iters=2, warmup=1),
+                    lambda: tower.tower_plain(packed, x2d, tensor_core=True), iters=1, warmup=0),
                 "library_ms": timed_ms(lambda: lib_tower(nhwc)),
                 "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
             }
@@ -1584,6 +1767,7 @@ def main() -> int:
                 f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.2f} MB), "
                 f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
     report["times"] = times
+    report["times_widths"] = time_widths(dev, gen)
 
     # --- 4. search and self-play on the card against the CPU -----------------
     cpu = torch.device("cpu")
@@ -1642,7 +1826,7 @@ def main() -> int:
     selfplay = {
         **SMOKE, "seconds": t_play, "moves": n_moves, "waves": len(waves),
         "moves_per_s": n_moves / t_play, "sims_per_s": n_moves * SMOKE["simulations"] / t_play,
-        "tower_launches": launches, "launches_by_boards": shapes.take("self-play"),
+        "tower_launches": launches, "launches_by_width": shapes.take("self-play"),
         "o_wins": int((res == 1).sum()), "x_wins": int((res == 2).sum()), "draws": int((res == 3).sum()),
         "positions": int(values.shape[0]),
     }
@@ -1665,20 +1849,21 @@ def main() -> int:
             g["launches"]["selfplay"] + g["launches"]["match"] for g in report["generation"]["generations"])
         generation_shapes = {}
         for g in report["generation"]["generations"]:
-            for b, n in g["launches_by_boards"].items():
-                generation_shapes[b] = generation_shapes.get(b, 0) + n
-        if sum(generation_shapes.values()) != generation_launches:
-            fail(f"launches by batch {generation_shapes} do not add up to {generation_launches}")
-        report_boards = max(generation_shapes, key=generation_shapes.get)
+            add_launches(generation_shapes, g["launches_by_width"])
+        if sum(by_batch(generation_shapes).values()) != generation_launches:
+            fail(f"launches by width and batch {generation_shapes} do not add up to {generation_launches}")
+        at_width = generation_shapes[tower.kernel_width(config.filters)]
+        report_boards = max(at_width, key=at_width.get)
         if report_boards not in times:
             fail(f"most launches of the generations are at B={report_boards}, which was not timed: "
                  f"{generation_shapes}")
         report["match"] = gen161_match(net, dev, shapes)
 
-        # --- 10.-14. the tools, data parallelism, the host search and solver,
-        # the supervisor ------------------------------------------------------
+        # --- 10.-15. [wide]: the generations at 256 filters; the tools, data
+        # parallelism, the host search and solver, the supervisor -------------
         seconds = {}
-        for name, phase in (("scripts", lambda: scripts_phase(dev, shapes, run_dir)),
+        for name, phase in (("wide", lambda: wide_phase(dev, shapes)),
+                            ("scripts", lambda: scripts_phase(dev, shapes, run_dir)),
                             ("dp", lambda: drive_dp(dev, net, shapes)), ("nccl", lambda: nccl_one_rank(dev)),
                             ("host", lambda: host_phase(dev)), ("supervisor", supervisor_phase)):
             t0 = time.perf_counter()
@@ -1689,36 +1874,51 @@ def main() -> int:
         + f"; together {sum(seconds.values()):.1f} s")
     dp_launches = sum(report["dp"]["launches"].values())
     scripts_launches = sum(report["scripts"]["launches"].values())
+    wide_launches = sum(g["launches"]["selfplay"] + g["launches"]["match"] for g in report["wide"]["generations"])
+    counted_shapes = add_launches({}, generation_shapes)
+    for g in report["wide"]["generations"]:
+        add_launches(counted_shapes, g["launches_by_width"])
     for part in ("dp", "scripts"):
-        for b, n in report[part]["launches_by_boards"].items():
-            generation_shapes[b] = generation_shapes.get(b, 0) + n
-    if sum(generation_shapes.values()) != generation_launches + dp_launches + scripts_launches:
-        fail(f"launches by batch {generation_shapes} do not add up to the paths' launches")
+        add_launches(counted_shapes, report[part]["launches_by_width"])
+    counted = generation_launches + wide_launches + dp_launches + scripts_launches
+    if sum(by_batch(counted_shapes).values()) != counted:
+        fail(f"launches by width and batch {counted_shapes} do not add up to the paths' launches")
+    # the largest error of the kernel against the emulated plain version and
+    # against the one rounded to nearest, over every (width, batch) launched
+    compared_at = {}
+    for b, e in errs.items():
+        compared_at.setdefault((tower.kernel_width(config.filters), b), []).append(e)
+    for f, per in width_errs.items():
+        for b, e in per.items():
+            compared_at.setdefault((tower.kernel_width(f), b), []).append(e)
+    launched = [e for f, per in counted_shapes.items() for b in per for e in compared_at[f, b]]
 
-    # --- 15. result lines ------------------------------------------------------
-    # time, bound and library time at the batch most launches of the
-    # generations have (their self-play's leaves); the error is the largest
-    # over every shape the generations, the tools and the [dp] ranks launched
+    # --- 16. result lines ------------------------------------------------------
+    # time, bound and library time at the batch most launches of phase 8's
+    # generations have (their self-play's leaves; F=64); the error is the
+    # largest over every width and shape the generations, [wide], the tools
+    # and the [dp] ranks launched; the times at F=128 and 256 beside them
     t_report = times[report_boards]
     kernels = [{
         "name": "tower",
         "route": "cuda",
         "source": "connect4_tpu_torch/models/csrc/tower.cu",
         "replaces": "connect4_tpu/models/pallas_net.py:153",
-        # of the training generations of phase 8 (self-play and gating match
-        # of both), of the tools of [scripts] and of the [dp] ranks (sharded
-        # self-play and two mesh generations); the self-play path of phase 5
-        # is counted beside it
-        "launches": generation_launches + scripts_launches + dp_launches,
+        # of the training generations of phase 8 and of [wide] (self-play
+        # and gating match of each), of the tools of [scripts] and of the
+        # [dp] ranks (sharded self-play and two mesh generations); the
+        # self-play path of phase 5 is counted beside it
+        "launches": counted,
         "launches_by_path": {"selfplay": launches, "generation": generation_launches,
-                             "scripts": scripts_launches,
+                             "wide": wide_launches, "scripts": scripts_launches,
                              "dp_selfplay": report["dp"]["launches"]["selfplay"],
                              "dp_generation": report["dp"]["launches"]["generation"]},
         "launches_by_tool": report["scripts"]["launches"],
-        "launches_by_boards": generation_shapes,
+        "launches_by_boards": by_batch(counted_shapes),
+        "launches_by_width": counted_shapes,
         "boards": report_boards,
-        "max_abs_err": max(errs[b]["model"]["tower_max"] for b in generation_shapes),
-        "max_abs_err_nearest": max(errs[b]["nearest"]["tower_max"] for b in generation_shapes),
+        "max_abs_err": max(e["model"]["tower_max"] for e in launched),
+        "max_abs_err_nearest": max(e["nearest"]["tower_max"] for e in launched),
         "ms": t_report["ms"],
         "plain_ms": t_report["plain_ms"],
         "bound_ms": t_report["bound_ms"],
@@ -1726,6 +1926,9 @@ def main() -> int:
         "library_ms": t_report["library_ms"],
         "by_boards": {b: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                       for b, t in times.items()},
+        "by_width": {f: {b: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                         for b, t in per.items()}
+                     for f, per in report["times_widths"].items()},
     }]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

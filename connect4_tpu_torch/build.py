@@ -30,9 +30,11 @@ import threading
 from typing import Callable, Dict, NamedTuple, Tuple
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# --split-compile=0 optimises a source's kernels in parallel on every core
+# (the tower has seven instantiations)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 )
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread")
 

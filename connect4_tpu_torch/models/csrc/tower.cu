@@ -80,6 +80,33 @@
 //   up to 256 a wgmma, the activations as the descriptor operand on a
 //   zero-padded board), see PERF.md.
 //
+// Wide towers (F = 128 and 256; tower.py pads every other width up to 256 to
+// the next of 16, 32, 64, 128, 256 with zero weights). The layout above does
+// not grow: a ring of whole [F, F] taps is 256 KB at F=256 and the two
+// [128, F] activation buffers alone are 128 KB, and an m64nF accumulator is
+// F/2 registers a thread (128 at F=256), more than two blocks an SM allow.
+// - Bound. At F=256 a board costs 12 x 42 x 2 x 2304 x 256 + 42 x 2 x 27 x 256
+//   = 595 MFLOP (149 at F=128), so B=4096 takes at least 2.46 ms (0.62 ms)
+//   at 989 TFLOP/s: bound by operations. A block reads all weights from L2
+//   for its 128 rows, 128 FLOP a byte, so at the L2's few TB/s the weight
+//   stream, not the tensor cores, is the nearer limit of this design.
+// - tower_kernel_wide<F>: the same block (two warpgroups, 3 boards, X and Y
+//   resident, the input conv and the epilogue as above) with the full
+//   m64nF accumulator. At F=256 one block an SM (__launch_bounds__(256, 1):
+//   up to 255 registers a thread); at F=128 two (128 registers and about
+//   100 KB each), so that four warpgroups cover one another's waits. The
+//   weights stream as 16-deep k-slabs (16 x F bf16, 4 KB / 8 KB, contiguous
+//   in the same res_img, which is one slab after another in the order they
+//   are multiplied) through a ring of 8 slabs (32 KB / 64 KB) with
+//   full/empty mbarriers. A commit group is kGroup slabs of one tap; its A
+//   fragments are double-buffered, so one group is in flight while the next
+//   is loaded and issued (wgmma.wait_group 1). Thread 0 copies the group
+//   kGroups - 2 ahead into the stages released one group earlier. The whole
+//   layer chains in one accumulator from zero (72 / 144 steps), in the
+//   order tower_plain sums it, so the kernel and its emulation agree bit
+//   for bit as at F <= 64. Rows are 256 / 512 bytes, swizzled by the low
+//   three bits of the row, and the zero row is a whole row long.
+//
 // Interface: plain C, loaded with ctypes. The kernel runs on the caller's
 // stream, allocates nothing, and the functions return cudaGetLastError().
 
@@ -140,10 +167,11 @@ struct Cfg {
 __device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : v * kSlope; }
 
 // 16-byte chunk c of activation row `row` lives at chunk c ^ swz(row): any 8
-// consecutive rows then touch 8 different 16-byte bank groups.
+// consecutive rows then touch 8 different 16-byte bank groups (at F >= 64 a
+// row is 8, 16 or 32 chunks, and the low three bits of the chunk move).
 template <int F>
 __device__ __forceinline__ uint32_t swz(int row) {
-  if (F == 64) return uint32_t(row) & 7u;
+  if (F >= 64) return uint32_t(row) & 7u;
   if (F == 32) return (uint32_t(row) >> 1) & 3u;
   return (uint32_t(row) >> 2) & 1u;
 }
@@ -315,6 +343,88 @@ struct Mma<64> {
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+// F = 128 and 256 start a chain with add(..., scale_d = 0)
+template <>
+struct Mma<128> {
+  static __device__ __forceinline__ void add(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc, uint32_t scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<256> {
+  static __device__ __forceinline__ void add(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t desc, uint32_t scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63, "
+        " %64, %65, %66, %67, %68, %69, %70, %71, "
+        " %72, %73, %74, %75, %76, %77, %78, %79, "
+        " %80, %81, %82, %83, %84, %85, %86, %87, "
+        " %88, %89, %90, %91, %92, %93, %94, %95, "
+        " %96, %97, %98, %99, %100, %101, %102, %103, "
+        " %104, %105, %106, %107, %108, %109, %110, %111, "
+        " %112, %113, %114, %115, %116, %117, %118, %119, "
+        " %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
@@ -619,6 +729,293 @@ int launch(const float* x, const __nv_bfloat16* conv1_img, const __nv_bfloat16* 
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// ---------------------------------------------------------------------------
+// F = 128 and 256 (see "Wide towers" in the header): one block an SM, the
+// weights streamed as 16-deep k-slabs, the whole layer chained in one
+// m64nF accumulator, one commit group in flight while the next is issued.
+
+template <int F>
+struct WideCfg {
+  static constexpr int kRows = kWarpgroups * 64;
+  static constexpr int kValidRows = kTileBoards * kArea;
+  static constexpr int kRB = 2 * F;                   // bytes per activation row
+  static constexpr int kKS = F / 16;                  // slabs per tap
+  static constexpr int kSlabBytes = 2 * F * 16;       // one 16-deep slab of a tap
+  static constexpr int kGroup = 2;                    // slabs a commit group multiplies
+  // F=128: two blocks an SM (128 registers a thread), each with a 32 KB ring
+  // of 8 slabs; F=256: one block, a 64 KB ring of 8 slabs
+  static constexpr int kBlocksPerSM = F == 128 ? 2 : 1;
+  static constexpr int kStages = (F == 128 ? 32768 : 65536) / kSlabBytes;
+  static constexpr int kGroups = kStages / kGroup;    // commit groups the ring holds
+  static constexpr int kLayerGroups = 9 * kKS / kGroup;
+  static constexpr int kActBytes = kRows * kRB;
+  // offsets from a 1024-byte aligned base; X, Y and the zero row are
+  // aligned to kRB, so a slab's ldmatrix address is the tap's XOR (ks << 5)
+  static constexpr int kXOff = 0;
+  static constexpr int kYOff = kActBytes;
+  static constexpr int kZeroOff = 2 * kActBytes;      // one zero row of kRB <= 512 bytes
+  static constexpr int kRingOff = kZeroOff + 1024;
+  static constexpr int kBiasOff = kRingOff + kStages * kSlabBytes;
+  static constexpr int kMaskOff = kBiasOff + 2 * F * 4;
+  static constexpr int kKtabOff = kMaskOff + kRows * 2;
+  static constexpr int kBarOff = kKtabOff + kMaxK0 * 4;
+  static constexpr int kSmem = kBarOff + (2 * kStages + 1) * 8 + 1024;  // + alignment slack
+  // the input conv stages conv1's weight image and the input planes in Y
+  static constexpr int kXinOff = kYOff + F * kMaxK0 * 2;
+  static_assert(F * kMaxK0 * 2 + kRows * 8 <= kActBytes, "input staging must fit Y");
+  static_assert(kKS % kGroup == 0 && kLayerGroups % 2 == 0, "groups tile a layer in pairs");
+  static_assert(kGroups >= 3, "the ring holds the group in use, the one in flight and one ahead");
+  // 228 KB an SM, of which 1 KB a block is reserved
+  static_assert((kSmem + 1024) * kBlocksPerSM <= 233472, "the blocks' shared memory on an SM");
+};
+
+template <int F>
+__global__ void __launch_bounds__(kThreads, WideCfg<F>::kBlocksPerSM)
+tower_kernel_wide(const float* __restrict__ x, const __nv_bfloat16* __restrict__ conv1_img,
+                  const __nv_bfloat16* __restrict__ conv1_b,
+                  const __nv_bfloat16* __restrict__ res_img,
+                  const __nv_bfloat16* __restrict__ res_b, __nv_bfloat16* __restrict__ out,
+                  int n_boards, int cin0, int n_res_layers) {
+  using C = WideCfg<F>;
+  constexpr int ND = F / 2;  // accumulator registers per thread
+  constexpr int G = C::kGroup;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* X = smem + C::kXOff;
+  unsigned char* Y = smem + C::kYOff;
+  float* bias = reinterpret_cast<float*>(smem + C::kBiasOff);       // [2][F]
+  uint16_t* tapmask = reinterpret_cast<uint16_t*>(smem + C::kMaskOff);
+  uint32_t* ktab = reinterpret_cast<uint32_t*>(smem + C::kKtabOff);
+  uint16_t* xin = reinterpret_cast<uint16_t*>(smem + C::kXinOff);   // [rows][4] bf16 bits
+  const uint32_t zero_s = smem_u32(smem + C::kZeroOff);
+  const uint32_t x_s = smem_u32(X), y_s = smem_u32(Y);
+  const uint32_t ring_s = smem_u32(smem + C::kRingOff);
+  const uint32_t bar_s = smem_u32(smem + C::kBarOff);
+  // barriers: full[s] at bar_s + 8s, empty[s] at bar_s + 8(C::kStages + s), conv1 last
+  const uint32_t bar_c1 = bar_s + 16 * C::kStages;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wg = tid >> 7;
+  const int w4 = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const long row_base = long(blockIdx.x) * C::kValidRows;
+  const long total_rows = long(n_boards) * kArea;
+  const int valid_rows =
+      int(total_rows - row_base < C::kValidRows ? total_rows - row_base : C::kValidRows);
+  const int k0 = 9 * cin0;              // depth of the input conv
+  const int ksteps0 = (k0 + 15) / 16;
+  const int total_groups = n_res_layers * C::kLayerGroups;
+  const unsigned char* res_bytes = reinterpret_cast<const unsigned char*>(res_img);
+
+  // Thread 0 copies commit group `q` (slabs qG .. qG+G-1 of the whole
+  // residual image, in the order they are multiplied) into their stages,
+  // once every warp has released the group that used them before.
+  auto load_group = [&](int q) {
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int slab = q * G + i;
+      const int s = slab % C::kStages;
+      const uint32_t use = uint32_t(slab / C::kStages);
+      if (use > 0) mbar_wait(bar_s + 8 * (C::kStages + s), (use - 1) & 1u);
+      mbar_expect_tx(bar_s + 8 * s, C::kSlabBytes);
+      bulk_copy(ring_s + s * C::kSlabBytes, res_bytes + size_t(slab) * C::kSlabBytes,
+                C::kSlabBytes, bar_s + 8 * s);
+    }
+  };
+
+  // --- barriers, first weight copies ---------------------------------------
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(bar_s + 8 * s, 1);
+      mbar_init(bar_s + 8 * (C::kStages + s), kWarpgroups * 4);  // lane 0 of each warp
+    }
+    mbar_init(bar_c1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const uint32_t c1_bytes = uint32_t(F) * ksteps0 * 16 * 2;
+    mbar_expect_tx(bar_c1, c1_bytes);
+    bulk_copy(y_s, conv1_img, c1_bytes, bar_c1);
+    for (int q = 0; q < C::kGroups - 2 && q < total_groups; ++q) load_group(q);
+  }
+
+  // --- tables and the input planes (rounded to bf16) -----------------------
+  for (int i = tid; i < C::kRB / 4; i += kThreads)
+    reinterpret_cast<uint32_t*>(smem + C::kZeroOff)[i] = 0u;
+  for (int i = tid; i < C::kRows; i += kThreads) {
+    uint32_t m = 0;
+    if (i < C::kValidRows) {
+      const int p = i % kArea, r = p / kWidth, c = p % kWidth;
+      for (int tap = 0; tap < 9; ++tap) {
+        const int rr = r + tap / 3 - 1, cc = c + tap % 3 - 1;
+        if (rr >= 0 && rr < kHeight && cc >= 0 && cc < kWidth) m |= 1u << tap;
+      }
+    }
+    tapmask[i] = uint16_t(m);
+  }
+  for (int k = tid; k < kMaxK0; k += kThreads) {
+    uint32_t e = 0;
+    if (k < k0) {
+      const int tap = k / cin0, ci = k % cin0;
+      const int off = (tap / 3 - 1) * kWidth + (tap % 3 - 1);
+      e = (uint32_t(off) & 0xFFu) | (uint32_t(ci) << 8) | (0x10000u << tap);
+    }
+    ktab[k] = e;
+  }
+  for (int i = tid; i < C::kRows * 4; i += kThreads) {
+    const int row = i >> 2, ci = i & 3;
+    const float v = (ci < cin0 && row < valid_rows) ? x[(row_base + row) * cin0 + ci] : 0.f;
+    xin[i] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+  for (int i = tid; i < F; i += kThreads) {
+    bias[i] = __bfloat162float(conv1_b[i]);
+    if (n_res_layers > 0) bias[F + i] = __bfloat162float(res_b[i]);
+  }
+  __syncthreads();
+
+  const int tile_row = wg * 64 + w4 * 16;
+  const int row_l = tile_row + (lane & 15);
+  const int row_g = tile_row + g;
+  const uint32_t mask_l = tapmask[row_l];
+
+  float acc[ND];
+
+  // --- input conv: A built in registers from the staged planes -------------
+  mbar_wait(bar_c1, 0);
+  {
+    const int r0 = row_g, r1 = r0 + 8;
+    const uint32_t m0 = tapmask[r0], m1 = tapmask[r1];
+    auto val = [&](int row, uint32_t m, int k) -> uint32_t {
+      const uint32_t e = ktab[k];
+      const int off = int(int8_t(e & 0xFFu));
+      const int ci = int((e >> 8) & 0xFFu);
+      return (m & (e >> 16)) ? uint32_t(xin[(row + off) * 4 + ci]) : 0u;
+    };
+    auto pair = [&](int row, uint32_t m, int k) -> uint32_t {
+      return val(row, m, k) | (val(row, m, k + 1) << 16);
+    };
+    uint32_t a[kMaxK0 / 16][4];
+#pragma unroll
+    for (int s = 0; s < kMaxK0 / 16; ++s) {
+      const int k = 16 * s + 2 * t;
+      a[s][0] = pair(r0, m0, k);
+      a[s][1] = pair(r1, m1, k);
+      a[s][2] = pair(r0, m0, k + 8);
+      a[s][3] = pair(r1, m1, k + 8);
+    }
+#pragma unroll
+    for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kMaxK0 / 16; ++s)
+      if (s < ksteps0) Mma<F>::add(acc, a[s], b_desc<F>(y_s + s * C::kSlabBytes), s > 0 ? 1u : 0u);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    epilogue<F, false>(acc, X, bias, row_g, t);
+  }
+
+  // --- residual blocks: layer l reads X (even l) or Y (odd l) --------------
+  for (int l = 0; l < n_res_layers; ++l) {
+    __syncthreads();  // the previous layer's output is complete
+    for (int i = tid; i < F && l + 1 < n_res_layers; i += kThreads)
+      bias[((l + 1) & 1 ? 0 : F) + i] = __bfloat162float(res_b[(l + 1) * F + i]);
+    const bool odd = l & 1;
+    const uint32_t src_s = odd ? y_s : x_s;
+    unsigned char* dst = odd ? X : Y;
+    const float* lbias = bias + (odd ? 0 : F);
+    const int q0 = l * C::kLayerGroups;  // the layer's first commit group
+
+    // shared-memory address this lane hands ldmatrix for slab 0 of tap `tap`
+    auto a_addr = [&](int tap) -> uint32_t {
+      const int src_row = row_l + (tap / 3 - 1) * kWidth + (tap % 3 - 1);
+      const uint32_t a_off =
+          uint32_t(src_row) * C::kRB + ((uint32_t(lane >> 4) ^ swz<F>(src_row)) << 4);
+      return ((mask_l >> tap) & 1u) ? src_s + a_off : zero_s + (a_off & uint32_t(C::kRB - 1));
+    };
+    // Issue commit group j of the layer (G slabs of one tap) with its A
+    // fragments in `a`; then, with at most this group in flight, release
+    // the previous group's stages and let thread 0 copy the group
+    // kGroups - 2 ahead into the stages released one group earlier.
+    auto step = [&](int j, uint32_t (&a)[G][4]) {
+      const int tap = j / (C::kKS / G);
+      const int kk = (j % (C::kKS / G)) * G;
+      const uint32_t a_s = a_addr(tap);
+#pragma unroll
+      for (int i = 0; i < G; ++i) ldmatrix_x4(a[i], a_s ^ uint32_t((kk + i) << 5));
+      const int slab = (q0 + j) * G;
+      uint32_t w_s[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const int s = (slab + i) % C::kStages;
+        mbar_wait(bar_s + 8 * s, uint32_t((slab + i) / C::kStages) & 1u);
+        w_s[i] = ring_s + s * C::kSlabBytes;
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        Mma<F>::add(acc, a[i], b_desc<F>(w_s[i]), (j > 0 || i > 0) ? 1u : 0u);
+      wgmma_commit();
+      if (j > 0) {
+        wgmma_wait<1>();
+        if (lane == 0) {
+#pragma unroll
+          for (int i = 0; i < G; ++i)
+            mbar_arrive(bar_s + 8 * (C::kStages + (slab - G + i) % C::kStages));
+        }
+      }
+      const int nxt = q0 + j + C::kGroups - 2;
+      if (tid == 0 && nxt < total_groups) load_group(nxt);
+    };
+
+    uint32_t a0[G][4], a1[G][4];
+#pragma unroll 1
+    for (int j = 0; j < C::kLayerGroups; j += 2) {
+      step(j, a0);
+      step(j + 1, a1);
+    }
+    wgmma_wait<0>();
+    reg_fence(acc);
+    if (lane == 0) {
+      const int slab = (q0 + C::kLayerGroups - 1) * G;
+#pragma unroll
+      for (int i = 0; i < G; ++i) mbar_arrive(bar_s + 8 * (C::kStages + (slab + i) % C::kStages));
+    }
+
+    if (odd)
+      epilogue<F, true>(acc, dst, lbias, row_g, t);
+    else
+      epilogue<F, false>(acc, dst, lbias, row_g, t);
+  }
+  __syncthreads();
+
+  // --- store the tile's valid rows, un-swizzled ---------------------------
+  constexpr int kVec = F / 8;
+  for (int i = tid; i < valid_rows * kVec; i += kThreads) {
+    const int row = i / kVec, c = i % kVec;
+    reinterpret_cast<uint4*>(out + (row_base + row) * F)[c] =
+        *reinterpret_cast<const uint4*>(X + row * C::kRB + ((uint32_t(c) ^ swz<F>(row)) << 4));
+  }
+}
+
+template <int F>
+int launch_wide(const float* x, const __nv_bfloat16* conv1_img, const __nv_bfloat16* conv1_b,
+                const __nv_bfloat16* res_img, const __nv_bfloat16* res_b, __nv_bfloat16* out,
+                int n_boards, int cin0, int n_res_layers, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        tower_kernel_wide<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, WideCfg<F>::kSmem);
+    if (err != cudaSuccess) return int(err);
+    configured = true;
+  }
+  const int blocks = (n_boards + kTileBoards - 1) / kTileBoards;
+  tower_kernel_wide<F><<<blocks, kThreads, WideCfg<F>::kSmem, stream>>>(
+      x, conv1_img, conv1_b, res_img, res_b, out, n_boards, cin0, n_res_layers);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -627,10 +1024,10 @@ extern "C" {
 // res_img: [n_res_layers, 9, F*F] bf16, the shared-memory images that
 // tower.py::pack_weights makes (8x8 core matrices, element (n, k) of a tap at
 // ((k/8 * F/8 + n/8) * 8 + n%8) * 8 + k%8); conv1_b: [F] bf16; res_b:
-// [n_res_layers, F] bf16; out: [n_boards*42, F] bf16. chain is one of the
-// kChain* values; the chains that are not shipped are built at F=64 only
-// (they are there to be measured). Returns a cudaError_t
-// (cudaErrorInvalidValue for a combination it does not take).
+// [n_res_layers, F] bf16; out: [n_boards*42, F] bf16; F one of 16, 32, 64,
+// 128, 256. chain is one of the kChain* values; the chains that are not
+// shipped are built at F=64 only (they are there to be measured). Returns a
+// cudaError_t (cudaErrorInvalidValue for a combination it does not take).
 int c4_tower_forward_chain(const void* x, const void* conv1_img, const void* conv1_b,
                            const void* res_img, const void* res_b, void* out, int n_boards,
                            int cin0, int filters, int n_res_layers, int chain, void* stream) {
@@ -652,6 +1049,10 @@ int c4_tower_forward_chain(const void* x, const void* conv1_img, const void* con
   C4_LAUNCH(64, kChainTap)
   C4_LAUNCH(64, kChainLayer)
 #undef C4_LAUNCH
+  if (filters == 128 && chain == kShippedChain)
+    return launch_wide<128>(xp, w1, b1, wr, br, o, n_boards, cin0, n_res_layers, s);
+  if (filters == 256 && chain == kShippedChain)
+    return launch_wide<256>(xp, w1, b1, wr, br, o, n_boards, cin0, n_res_layers, s);
   return int(cudaErrorInvalidValue);
 }
 

@@ -22,6 +22,14 @@ streamed by asynchronous bulk copies through a ring of ``mbarrier``s.
 shared-memory images the kernel's matrix descriptors read (``conv1_img``,
 ``res_img``), and ``tile_plan`` mirrors the launcher's choice of tile.
 
+Widths. The kernel is instantiated at ``KERNEL_FILTERS``; a net of any
+other width up to ``MAX_FILTERS`` runs at the next instantiated one
+(``kernel_width``): ``pack_weights`` pads the conv weights and biases with
+zeros, so the padded channels stay exactly 0 through every layer and add
+nothing to the real ones, and ``heads`` reads the real channels only. The
+plain version computes on the same padded tensors, so the CPU and the card
+compute one function. A wider net raises.
+
 Numerics (both versions, as in the Pallas kernel): inputs rounded to bf16,
 bf16 weights, float32 accumulation, float32 bias add, LeakyReLU, a round
 to bf16 at every layer boundary, the residual add in float32. Both sum a
@@ -54,12 +62,17 @@ from connect4_tpu_torch.models.net import lrelu
 from connect4_tpu_torch.types import AREA, HEIGHT, WIDTH
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "tower.cu")
-KERNEL_FILTERS = (16, 32, 64)  # widths the kernel is instantiated for
+KERNEL_FILTERS = (16, 32, 64, 128, 256)  # widths the kernel is instantiated for
+# The widest tower a block can hold: wgmma's N is at most 256, and the two
+# [128 rows, F] bf16 activation tiles (128 KB at F=256) and the weight ring
+# fill the 227 KB of shared memory a block may use.
+MAX_FILTERS = KERNEL_FILTERS[-1]
 MAX_CHANNELS = 4
 # How many terms of a residual conv's 9*Cin-deep sum form one product before
 # a float32 add: "step" 16 (one tensor-core step), "tap" Cin (one tap),
-# "layer" all. The kernel ships CHAIN; the others exist (at F=64) to be
-# measured against it. The order matches csrc/tower.cu's kChain* constants.
+# "layer" all. The kernel ships CHAIN at every width; the others exist (at
+# F=64) to be measured against it. The order matches csrc/tower.cu's kChain*
+# constants.
 CHAINS = ("step", "tap", "layer")
 CHAIN = "layer"
 TILE_BOARDS = 3  # boards per block: two 64-row tiles, one per warpgroup
@@ -71,12 +84,26 @@ PEAK_BYTES = 3.35e12
 _BF16 = torch.bfloat16
 
 
+def kernel_width(filters: int) -> int:
+    """The width the tower runs at for a net of ``filters``: the narrowest
+    of ``KERNEL_FILTERS`` that holds it. Raises above ``MAX_FILTERS``."""
+    if not 1 <= filters <= MAX_FILTERS:
+        raise ValueError(
+            f"tower: filters {filters} is outside 1..{MAX_FILTERS}; a block of the tower "
+            f"kernel holds at most {MAX_FILTERS} channels (wgmma N <= 256, and two "
+            f"[128, F] bf16 activation tiles plus the weight ring in 227 KB of shared memory)"
+        )
+    return next(w for w in KERNEL_FILTERS if w >= filters)
+
+
 def tower_bound(config: NetConfig, boards: int):
     """``(bound_ms, bound_by, flops, bytes)`` of the tower on ``boards``
     boards on an H100: every MAC of the convs on 42 rows a board (37.3
-    MFLOP a board at F=64, 6 residual blocks), and each input, weight and
-    output byte moved once. The bound is the larger of the operations over
-    the bf16 peak and the bytes over the memory rate."""
+    MFLOP a board at F=64, 6 residual blocks; 595 MFLOP at F=256), and each
+    input, weight and output byte moved once. The bound is the larger of
+    the operations over the bf16 peak and the bytes over the memory rate.
+    It counts the net's own width, so the zero channels a padded width
+    computes show as lost efficiency."""
     f, c, n = config.filters, config.channels, config.n_residuals
     flops = boards * AREA * 2 * (9 * c * f + 2 * n * 9 * f * f)
     weight_bytes = 2 * (9 * c * f + f + 2 * n * (9 * f * f + f))
@@ -91,35 +118,45 @@ def pack_weights(config: NetConfig, folded: Dict[str, torch.Tensor]) -> Dict[str
     (dr, dc, cin) order, as ``pack_weights`` of the Pallas tower makes them.
     ``conv1_img`` and ``res_img`` hold the same values as the shared-memory
     images the CUDA kernel copies in and multiplies from (``smem_image``).
-    Biases are rounded to bf16, as there."""
+    Biases are rounded to bf16, as there.
 
-    def im2col(w):  # OIHW [F, Cin, 3, 3] -> [9*Cin, F]
-        return w.detach().permute(2, 3, 1, 0).reshape(-1, w.shape[0]).to(_BF16)
+    The tower's tensors are at ``kernel_width(config.filters)``: conv output
+    channels, residual input channels and biases padded with zeros. The
+    heads' tensors keep the net's own width."""
+
+    f = config.filters
+    fp = kernel_width(f)
+
+    def im2col(w, cin):  # OIHW [F, Cin, 3, 3] -> [9*cin, fp], zero-padded
+        w = F.pad(w.detach(), (0, 0, 0, 0, 0, cin - w.shape[1], 0, fp - w.shape[0]))
+        return w.permute(2, 3, 1, 0).reshape(-1, fp).to(_BF16)
 
     def bf(name):
         return folded[name].detach().to(_BF16)
 
-    f = config.filters
-    res_w = [im2col(folded[f"res.{i}.weight"]) for i in range(2 * config.n_residuals)]
-    res_b = [bf(f"res.{i}.bias") for i in range(2 * config.n_residuals)]
+    def bias(name):  # [F] -> [fp], zero-padded
+        return F.pad(bf(name), (0, fp - f))
+
+    res_w = [im2col(folded[f"res.{i}.weight"], fp) for i in range(2 * config.n_residuals)]
+    res_b = [bias(f"res.{i}.bias") for i in range(2 * config.n_residuals)]
     dev = folded["conv0.weight"].device
-    res_w = torch.stack(res_w) if res_w else torch.zeros((0, 9 * f, f), dtype=_BF16, device=dev)
-    res_b = torch.stack(res_b) if res_b else torch.zeros((0, f), dtype=_BF16, device=dev)
+    res_w = torch.stack(res_w) if res_w else torch.zeros((0, 9 * fp, fp), dtype=_BF16, device=dev)
+    res_b = torch.stack(res_b) if res_b else torch.zeros((0, fp), dtype=_BF16, device=dev)
     n_fc = config.n_fc_layers
 
     def dense(name):  # Linear [out, in] -> Dense kernel [in, out]
         return folded[name].detach().T.contiguous().to(_BF16)
 
-    conv1_w = im2col(folded["conv0.weight"]).contiguous()
+    conv1_w = im2col(folded["conv0.weight"], config.channels).contiguous()
     depth0 = conv1_w.shape[0]
     conv1_pad = F.pad(conv1_w, (0, 0, 0, -depth0 % 16))  # depth up to a multiple of 16
     return {
-        "conv1_w": conv1_w,  # [9*channels, F]
-        "conv1_img": smem_image(conv1_pad),  # [16*ceil(9*channels/16) * F]
-        "conv1_b": bf("conv0.bias"),
-        "res_w": res_w.contiguous(),  # [2n, 9F, F]
-        "res_img": smem_image(res_w.unflatten(1, (9, f))),  # [2n, 9, F*F], one tap each
-        "res_b": res_b.contiguous(),  # [2n, F]
+        "conv1_w": conv1_w,  # [9*channels, fp]
+        "conv1_img": smem_image(conv1_pad),  # [16*ceil(9*channels/16) * fp]
+        "conv1_b": bias("conv0.bias"),  # [fp]
+        "res_w": res_w.contiguous(),  # [2n, 9*fp, fp]
+        "res_img": smem_image(res_w.unflatten(1, (9, fp))),  # [2n, 9, fp*fp], one tap each
+        "res_b": res_b.contiguous(),  # [2n, fp]
         "vh_conv_w": folded["vh_conv.weight"].detach().reshape(1, f).T.contiguous().to(_BF16),
         "vh_conv_b": bf("vh_conv.bias"),
         "vh_fc_w": [dense(f"vh_fcs.{i}.weight") for i in range(n_fc)],
@@ -250,9 +287,10 @@ def _conv3x3_plain(
 def tower_plain(
     packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain: str = CHAIN, tensor_core: bool = False
 ) -> torch.Tensor:
-    """The tower in plain tensor code: ``[B*42, C]`` -> ``[B*42, F]`` bf16,
-    summed in the kernel's order at chain length ``chain``; a chain's inner
-    sum rounded to nearest, or as the tensor core computes it."""
+    """The tower in plain tensor code: ``[B*42, C]`` -> ``[B*42, fp]`` bf16
+    (``fp`` the packed, padded width), summed in the kernel's order at
+    chain length ``chain``; a chain's inner sum rounded to nearest, or as
+    the tensor core computes it."""
     b = x2d.shape[0] // AREA
     x = x2d.to(_BF16).reshape(b, HEIGHT, WIDTH, -1)
     x = lrelu(_conv3x3_plain(x, packed["conv1_w"], packed["conv1_b"], chain, tensor_core)).to(_BF16)
@@ -292,8 +330,9 @@ def _tower_cuda(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) 
     n_layers = packed["res_img"].shape[0]
     if rows % AREA or f not in KERNEL_FILTERS or not 1 <= cin <= MAX_CHANNELS:
         raise ValueError(
-            f"tower kernel takes [B*42, C<= {MAX_CHANNELS}] rows and F in "
-            f"{KERNEL_FILTERS}; got rows {rows}, C {cin}, F {f}"
+            f"tower kernel takes [B*42, C<= {MAX_CHANNELS}] rows and packed widths F in "
+            f"{KERNEL_FILTERS} (pack_weights pads a net of up to {MAX_FILTERS} filters to "
+            f"one of them); got rows {rows}, C {cin}, F {f}"
         )
     dev = x2d.device
     _check(x2d, "x", torch.float32, (rows, cin), dev)
@@ -321,8 +360,8 @@ def _tower_cuda(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) 
 
 
 def run_tower(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) -> torch.Tensor:
-    """``[B*42, C]`` float32 rows of ``(board, r, c)`` -> ``[B*42, F]`` bf16
-    tower output. The CUDA kernel for a CUDA tensor; the plain version for
+    """``[B*42, C]`` float32 rows of ``(board, r, c)`` -> ``[B*42, fp]`` bf16
+    tower output at the packed width. The CUDA kernel for a CUDA tensor; the plain version for
     a CPU tensor; anything else raises. ``chain`` (one of ``CHAINS``)
     overrides the shipped chain length, for measurements."""
     if x2d.device.type == "cuda":
@@ -345,9 +384,11 @@ def _dot(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def heads(packed: Dict[str, torch.Tensor], t: torch.Tensor):
-    """Value and policy heads on the bf16 tower output ``[B*42, F]``
-    -> ``(value [B] f32, prior [B, 7] f32)``."""
+    """Value and policy heads on the bf16 tower output ``[B*42, fp]``
+    -> ``(value [B] f32, prior [B, 7] f32)``. They read the net's own F
+    channels; the padded ones (all 0) are sliced off."""
     b = t.shape[0] // AREA
+    t = t[:, : packed["vh_conv_w"].shape[0]]
     v = lrelu(_dot(t, packed["vh_conv_w"], packed["vh_conv_b"])).to(_BF16)
     v = v.reshape(b, AREA)
     for wi, bi in zip(packed["vh_fc_w"], packed["vh_fc_b"]):
@@ -363,7 +404,9 @@ def heads(packed: Dict[str, torch.Tensor], t: torch.Tensor):
 
 
 def forward(packed: Dict[str, torch.Tensor], nhwc: torch.Tensor):
-    """``nhwc [B, 6, 7, channels] -> (value [B] f32, prior [B, 7] f32)``."""
+    """``nhwc [B, 6, 7, channels] -> (value [B] f32, prior [B, 7] f32)``:
+    the tower at the packed width, then the heads on the net's own F
+    channels of it."""
     b = nhwc.shape[0]
     x2d = nhwc.reshape(b * AREA, nhwc.shape[-1]).float().contiguous()
     return heads(packed, run_tower(packed, x2d))

@@ -73,6 +73,32 @@ def test_kernel_matches_plain_on_card():
 
 
 @pytest.mark.gpu
+def test_kernel_equals_its_emulation_at_every_width():
+    """At widths the kernel pads (F=24 runs at 32) and at the wide
+    instantiations (F=128, 256), on fresh nets of two residual blocks: the
+    kernel equals the plain version with the tensor core's accumulate
+    emulated on the same packed weights in every element, and the padded
+    channels are 0. A block takes 3 boards, so the last block holds 3, 1
+    and 1 boards at B=261, 64 and 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for f in (24, 128, 256):
+        config = NetConfig(filters=f, n_fc_layers=2, n_residuals=2, compute_dtype="bfloat16")
+        net = init_net(config, torch.Generator().manual_seed(f), device="cuda")
+        packed = tower.pack_weights(config, fold_bn_params(net))
+        for b in (261, 64, 1):
+            x2d = _positions(b, g)
+            with torch.no_grad():
+                tk = tower.run_tower(packed, x2d)
+                tp = tower.tower_plain(packed, x2d, tensor_core=True)
+            torch.cuda.synchronize()
+            assert tk.shape == (b * 42, tower.kernel_width(f))
+            assert int((tk != tp).sum()) == 0, (f, b)
+            assert not tk[:, f:].any(), (f, b)
+
+
+@pytest.mark.gpu
 def test_train_step_on_card_matches_cpu():
     """Three SGD steps (uint8 NCHW batches of 256 legal positions, made-up
     targets) on the card against the same steps on the CPU from the same

@@ -5,9 +5,21 @@ blocks, fc 2), the same 261 boards, value and prior within 2e-2 (the JAX
 test's own tolerance: both round to bf16 at every layer boundary and sum
 in different orders). On the CPU the wrapper runs the plain version; the
 CUDA kernel itself is held against it on the card by ``chip_smoke.py`` and
-by ``tests/test_torch_gpu.py``."""
+by ``tests/test_torch_gpu.py``.
+
+Widths: the kernel is instantiated at ``tower.KERNEL_FILTERS`` and
+``pack_weights`` pads any other width up to ``tower.MAX_FILTERS`` with
+zeros. The width tests hold the padded packing, both forms of the plain
+version and the evaluator against the JAX package at F = 4, 24, 128 and
+256 (one residual block, fc 1, a few boards), on the same weights: Flax
+variables made from a JAX key with numpy-drawn BatchNorm statistics,
+carried over with ``from_flax``."""
 
 import dataclasses
+import os
+import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +30,7 @@ import jax
 from connect4_tpu.config import NetConfig as JNetConfig
 from connect4_tpu.env.convert import stack_boards as jstack_boards
 from connect4_tpu.env.host_board import HostBoard
+from connect4_tpu.eval.evaluators import make_net_evaluator as jmake_net_evaluator
 from connect4_tpu.eval.evaluators import make_pallas_net_evaluator
 from connect4_tpu.models import init_net as jinit_net
 from connect4_tpu.models.net import fold_bn_params as jfold_bn_params
@@ -127,25 +140,40 @@ def test_wrapper_never_falls_back(small_net):
         tower.run_tower(packed, torch.empty((42, 3), device="meta"))
 
 
-@pytest.mark.parametrize("filters", tower.KERNEL_FILTERS)
+@pytest.mark.parametrize("filters", sorted({4, 8, 24, 48, 96, *tower.KERNEL_FILTERS}))
 def test_packed_weight_image_unpacks_bit_for_bit(filters):
     """``pack_weights``' shared-memory images of the residual and input
     weights invert to the im2col matrices bit for bit, and an element sits
-    where the kernel's matrix descriptor expects it."""
+    where the kernel's matrix descriptor expects it. A width the kernel is
+    not instantiated at is packed at the next one that is: the net's
+    weights in the leading rows and columns of each tap, zeros elsewhere,
+    and zero biases in the padded channels."""
     config = NetConfig(filters=filters, n_fc_layers=1, n_residuals=2, compute_dtype="bfloat16")
     net = init_net(config, torch.Generator().manual_seed(filters), device="cpu")
-    packed = tower.pack_weights(config, fold_bn_params(net))
+    folded = fold_bn_params(net)
+    packed = tower.pack_weights(config, folded)
+    fp = tower.kernel_width(filters)
+    assert fp in tower.KERNEL_FILTERS and fp >= filters and (fp == filters) == (filters in tower.KERNEL_FILTERS)
     res_w, img = packed["res_w"], packed["res_img"]
-    assert img.shape == (4, 9, filters * filters) and img.dtype == torch.bfloat16
-    back = tower.smem_image_inverse(img, filters)  # [2n, 9, F(k), F(n)]
+    assert img.shape == (4, 9, fp * fp) and img.dtype == torch.bfloat16
+    back = tower.smem_image_inverse(img, fp)  # [2n, 9, fp(k), fp(n)]
     assert torch.equal(back.flatten(1, 2), res_w)
-    groups = filters // 8
-    for layer, tap, k, n in [(0, 0, 0, 0), (1, 4, 9, filters - 3), (3, 8, filters - 1, 7)]:
+    groups = fp // 8
+    for layer, tap, k, n in [(0, 0, 0, 0), (1, 4, 9 % filters, filters - 3 % filters), (3, 8, filters - 1, 7 % filters)]:
         at = ((k // 8 * groups + n // 8) * 8 + n % 8) * 8 + k % 8
-        assert img[layer, tap, at] == res_w[layer, tap * filters + k, n]
-    conv1 = tower.smem_image_inverse(packed["conv1_img"], filters)  # [32, F], 27 rows used
-    assert conv1.shape == (32, filters)
+        assert img[layer, tap, at] == res_w[layer, tap * fp + k, n]
+    taps = res_w.unflatten(1, (9, fp))  # [2n, 9, cin, cout]
+    want = torch.stack([folded[f"res.{i}.weight"].permute(2, 3, 1, 0).reshape(9, filters, filters)
+                        for i in range(4)]).to(torch.bfloat16)
+    assert torch.equal(taps[:, :, :filters, :filters], want)
+    assert not taps[:, :, filters:].any() and not taps[:, :, :, filters:].any()
+    assert not packed["res_b"][:, filters:].any() and not packed["conv1_b"][filters:].any()
+    conv1 = tower.smem_image_inverse(packed["conv1_img"], fp)  # [32, fp], 27 rows used
+    assert conv1.shape == (32, fp)
     assert torch.equal(conv1[:27], packed["conv1_w"]) and not conv1[27:].any()
+    assert not packed["conv1_w"][:, filters:].any()
+    # the heads keep the net's own width
+    assert packed["vh_conv_w"].shape == (filters, 1) and packed["ph_conv_w"].shape == (filters, 2)
 
 
 @pytest.mark.parametrize("tensor_core", [False, True])
@@ -290,3 +318,198 @@ def test_round_toward_zero_truncates():
 def test_config_roundtrip_between_packages():
     """The port's NetConfig is a field-for-field copy of the JAX one."""
     assert dataclasses.asdict(NetConfig(**SMALL)) == dataclasses.asdict(JNetConfig(**SMALL))
+
+
+# --- widths the kernel is not instantiated at, and the wide ones -------------
+
+WIDTHS = (4, 24, 128, 256)
+WIDE = dict(n_fc_layers=1, n_residuals=1, compute_dtype="bfloat16")
+
+
+def _boards(n, seed):
+    """``n`` positions of seeded random play (the empty board first)."""
+    rng = np.random.default_rng(seed)
+    boards = [HostBoard()]
+    while len(boards) < n:
+        b = HostBoard()
+        for _ in range(rng.integers(1, 20)):
+            if b.result is not None:
+                break
+            b.make_move(int(rng.choice(sorted(b.valid_moves))))
+        if b.result is None:
+            boards.append(b)
+    return boards
+
+
+def _torch_folded(jfolded, n_residuals, n_fc):
+    """The JAX package's folded parameter tree as the port's
+    ``InferenceNet`` state dict, value for value (HWIO -> OIHW)."""
+    def conv(t, name):
+        return {f"{name}.weight": torch.from_numpy(np.array(t["kernel"], np.float32)).permute(3, 2, 0, 1),
+                f"{name}.bias": torch.from_numpy(np.array(t["bias"], np.float32))}
+
+    def dense(t, name):
+        return {f"{name}.weight": torch.from_numpy(np.array(t["kernel"], np.float32)).T,
+                f"{name}.bias": torch.from_numpy(np.array(t["bias"], np.float32))}
+
+    out = conv(jfolded["_InfConvBlock_0"]["Conv_0"], "conv0")
+    for i in range(n_residuals):
+        for j in range(2):
+            out.update(conv(jfolded[f"_InfResidualBlock_{i}"][f"Conv_{j}"], f"res.{2 * i + j}"))
+    vh, ph = jfolded["_InfValueHead_0"], jfolded["_InfPolicyHead_0"]
+    out.update(conv(vh["Conv_0"], "vh_conv"))
+    for i in range(n_fc):
+        out.update(dense(vh[f"Dense_{i}"], f"vh_fcs.{i}"))
+    out.update(dense(vh[f"Dense_{n_fc}"], "vh_out"))
+    out.update(conv(ph["Conv_0"], "ph_conv"))
+    out.update(dense(ph["Dense_0"], "ph_fc"))
+    return out
+
+
+@pytest.fixture(scope="module", params=WIDTHS, ids=lambda f: f"F{f}")
+def wide_net(request):
+    """One net of ``filters`` in both packages: Flax variables from a JAX
+    key, with BatchNorm scales, biases and running statistics drawn with
+    numpy so that the folds are not the identity."""
+    f = request.param
+    jconfig = JNetConfig(filters=f, **WIDE)
+    net, variables = jinit_net(jconfig, jax.random.key(f))
+    rng = np.random.default_rng(f)
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    stats = jax.tree_util.tree_map(
+        lambda a: (rng.uniform(0.5, 1.5, a.shape) if a.ndim else a).astype(np.float32), variables["batch_stats"])
+    stats = jax.tree_util.tree_map_with_path(
+        lambda path, a: (a - 1.0) * 0.2 if path[-1].key == "mean" else a, stats)
+
+    def bn(path, a):
+        if path[-1].key == "scale":
+            return rng.uniform(0.6, 1.4, a.shape).astype(np.float32)
+        if path[-1].key == "bias" and "BatchNorm" in str(path):
+            return rng.normal(0.0, 0.1, a.shape).astype(np.float32)
+        return a
+
+    params = jax.tree_util.tree_map_with_path(bn, params)
+    jfolded = jax.tree_util.tree_map(np.asarray, jfold_bn_params(jconfig, params, stats))
+    tnet = from_flax(NetConfig(filters=f, **WIDE), params, stats, device="cpu")
+    boards = _boards(4, f)
+    x = np.stack([np.moveaxis(b.to_planes().astype(np.float32), 0, -1) for b in boards])
+    return f, jconfig, net, params, stats, jfolded, tnet, boards, x
+
+
+def test_padded_packing_equals_jax_bit_for_bit(wide_net):
+    """On the JAX package's own folded values, the port's packing holds the
+    Pallas tower's im2col matrices and biases bit for bit in its leading
+    rows and columns, zeros in the rest, and the heads' weights as they
+    are; the shared-memory images invert to the padded matrices."""
+    f, jconfig, _, _, _, jfolded, *_ = wide_net
+    theirs = jpack_weights(jconfig, jfolded)
+    mine = tower.pack_weights(NetConfig(filters=f, **WIDE), _torch_folded(jfolded, 1, 1))
+    fp = tower.kernel_width(f)
+    real = {
+        "conv1_w": mine["conv1_w"][:, :f],
+        "conv1_b": mine["conv1_b"][:f],
+        "res_w": mine["res_w"].unflatten(1, (9, fp))[:, :, :f, :f].flatten(1, 2),
+        "res_b": mine["res_b"][:, :f],
+    }
+    for name, value in theirs.items():
+        if name == "mask":
+            continue
+        ours = real.get(name, mine[name])
+        pairs = zip(value, ours) if isinstance(value, list) else [(value, ours)]
+        for j, t in pairs:
+            assert t.dtype == torch.bfloat16
+            np.testing.assert_array_equal(t.float().numpy(), np.asarray(j, dtype=np.float32), err_msg=name)
+    assert mine["conv1_w"][:, f:].abs().sum() == 0 and mine["conv1_b"][f:].abs().sum() == 0
+    assert mine["res_b"][:, f:].abs().sum() == 0
+    taps = mine["res_w"].unflatten(1, (9, fp))
+    assert taps[:, :, f:].abs().sum() == 0 and taps[:, :, :, f:].abs().sum() == 0
+    assert torch.equal(tower.smem_image_inverse(mine["res_img"], fp).flatten(1, 2), mine["res_w"])
+    assert torch.equal(tower.smem_image_inverse(mine["conv1_img"], fp)[:27], mine["conv1_w"])
+
+
+@pytest.mark.parametrize("tensor_core", [False, True])
+def test_plain_tower_at_every_width_matches_pallas(wide_net, tensor_core):
+    """Both forms of the plain version on the padded packing against the
+    Pallas tower in interpret mode: value and prior within the Pallas
+    test's 2e-2 (measured on the CPU: at most 2.0e-4, at F=256 with the
+    tensor core's accumulate emulated; 1e-7 elsewhere), and the padded
+    channels of the tower output exactly 0."""
+    f, jconfig, _, _, _, jfolded, tnet, _, x = wide_net
+    jv, jp = (np.asarray(a) for a in make_pallas_forward(
+        jconfig, jpack_weights(jconfig, jfolded), interpret=True)(x))
+    packed = tower.pack_weights(tnet.config, fold_bn_params(tnet))
+    x2d = torch.from_numpy(x).reshape(-1, 3)
+    with torch.no_grad():
+        t = tower.tower_plain(packed, x2d, tower.CHAIN, tensor_core)
+        tv, tp = tower.heads(packed, t)
+    assert t.shape == (len(x) * 42, tower.kernel_width(f)) and t.dtype == torch.bfloat16
+    assert t[:, f:].abs().sum() == 0
+    dv, dp = np.abs(tv.numpy() - jv).max(), np.abs(tp.numpy() - jp).max()
+    assert dv <= 2e-2 and dp <= 2e-2, (dv, dp)
+    if not tensor_core:  # the CPU path is the form rounded to nearest
+        assert torch.equal(tower.run_tower(packed, x2d), t)
+
+
+def test_evaluator_at_every_width_matches_jax_evaluator(wide_net):
+    """The port's ``make_net_evaluator`` (folded, padded tower on the CPU)
+    against the JAX package's main-path evaluator (``make_net_evaluator``,
+    the folded net in XLA bf16) on the same boards: value and prior within
+    2e-2, the tolerance of the port's tower against the Pallas tower
+    (measured on the CPU: at most 1.6e-3, at F=128)."""
+    _, _, net, params, stats, _, tnet, boards, _ = wide_net
+    jv, jp = jax.jit(jmake_net_evaluator(net, params, stats))(jstack_boards(boards))
+    tv, tp = make_net_evaluator(tnet)(stack_boards(boards, device="cpu"))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=0, atol=2e-2)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=2e-2)
+
+
+def test_width_above_the_limit_raises():
+    """A net wider than a block holds raises, naming the limit; it is not
+    run some other way."""
+    config = NetConfig(filters=tower.MAX_FILTERS + 8, **WIDE)
+    with pytest.raises(ValueError, match=f"1..{tower.MAX_FILTERS}"):
+        tower.kernel_width(config.filters)
+    net = init_net(config, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="at most 256 channels"):
+        make_net_evaluator(net)
+
+
+def test_cli_training_generation_of_a_padded_bf16_net(tmp_path):
+    """``cli training --device cpu`` for one generation of a bf16 net of 4
+    filters, whose tower runs at the kernel's 16 (before the padding the
+    packing raised): every game replays legally on the host board and the
+    training loss is finite."""
+    from connect4_tpu_torch.env.host_board import HostBoard as THostBoard
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = tmp_path / "run"
+    cfg = tmp_path / "cfg.py"
+    cfg.write_text(
+        "from connect4_tpu_torch.config import *\n"
+        "config = AlphaZeroConfig(\n"
+        "    model_config=ModelConfig(net_config=NetConfig(filters=4, n_fc_layers=1, n_residuals=1,\n"
+        "                                                  compute_dtype='bfloat16'),\n"
+        "                             batch_size=64, n_training_epochs=1),\n"
+        f"    storage_config=StorageConfig(save_dir={str(run)!r}),\n"
+        "    simulations=8, n_training_games=6, selfplay_batch=4, parallel_sims=4,\n"
+        "    num_sampling_moves=4, n_eval=0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run(
+        [sys.executable, "-m", "connect4_tpu_torch.cli", "training", "-c", str(cfg), "--generations", "1",
+         "--device", "cpu"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    loss = re.search(r"Training loss: (\S+) -> (\S+) over (\d+) steps", proc.stdout)
+    assert loss and int(loss.group(3)) > 0, proc.stdout[-2000:]
+    assert np.isfinite(float(loss.group(1))) and np.isfinite(float(loss.group(2)))
+    with np.load(run / "1" / "games.npz") as games:
+        moves, length, result = games["moves"], games["length"], games["result"]
+    assert len(result) == 6 and (result != 0).all()
+    for g in range(len(result)):
+        board = THostBoard()
+        for t in range(int(length[g])):
+            assert int(moves[g, t]) in board.valid_moves, (g, t)
+            board.make_move(int(moves[g, t]))
+        assert board.result is not None and board.result.code == int(result[g]), g
