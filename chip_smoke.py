@@ -7,7 +7,8 @@ CUDA toolkit; imports nothing of JAX or of the JAX package. Phases, each
 fatal on failure:
 
 1. build every CUDA kernel of the main path from the sources in the
-   checkout (``nvcc``, printed with its ptxas report);
+   checkout (``nvcc``, printed with its ptxas report: the fused tower
+   kernels and the layer kernel ``tower_layer`` are one source);
 2. hold each kernel against its plain PyTorch version on the card, on
    legal board positions at every batch shape the driven paths launch it
    at (``COMPARE_BOARDS``: a pool of S slots evaluates S roots and S x K=8
@@ -20,7 +21,9 @@ fatal on failure:
    every width (``WIDTHS``: 4, 24, 48, 96, 128, 256, packed to 16, 32, 64,
    128, 128, 256), a fresh net at full depth (fc 6, res 6) at B=4096, 512,
    64 and 1, and at F=256 also at every shape of phase 8's generations
-   (``WIDE_BOARDS``): 0 elements may differ from
+   (``WIDE_BOARDS``); above 256 filters (``LAYER_WIDTHS``: 264, 384, 512,
+   packed to 320, 384, 512, the layer kernel) at B=512, 64 and 1, and at
+   F=512 also at every shape of [wider] (``WIDER_BOARDS``): 0 elements may differ from
    the emulated plain version on the same packed weights, and the padded
    channels must be exactly 0. The script records the packed width and
    batch of every launch the paths make and fails if a pair was not among
@@ -36,9 +39,9 @@ fatal on failure:
    only: the port never calls it) at B=4096, 2048, 512, 392 and 64, beside
    the bound of each (the ``kernels`` line reports the batch that most
    launches of the training generations have, B=2048, their leaf batch),
-   and with fresh nets at F=16, 32, 128 and 256 at B=4096, 2048, 512 and
-   64 (the plain version rounded to nearest only: its emulated form takes
-   tens of seconds at F=256);
+   and with fresh nets at F=16, 32, 128, 256 and (the layer kernel) 320,
+   384, 512 at B=4096, 2048, 512 and 64 (the plain version rounded to
+   nearest only: its emulated form takes tens of seconds at F=256);
 4. check the search and self-play on the card against the same code on
    the CPU with the deterministic centre evaluator;
 5. drive the self-play path: a generation through
@@ -69,7 +72,12 @@ fatal on failure:
     with a fresh net of 256 filters (``WIDE_NET``: fc 6, res 6, bf16), in a
     directory of their own, with phase 8's checks; every launch must be at
     F=256 and compared, and the plain tower is never entered;
-11. [scripts] the run and measurement tools of ``connect4_tpu_torch.scripts``
+11. [wider] the same two generations with a fresh net of 512 filters
+    (``WIDER_NET``), the layer kernel, cut to 128 games in 64 slots and 5
+    epochs at batch 1024 (``WIDER_DEPTH``), with phase 8's checks; every
+    launch must be at F=512 and compared, every forward 13 launches of the
+    layer kernel, and the plain tower is never entered;
+12. [scripts] the run and measurement tools of ``connect4_tpu_torch.scripts``
     at full width (``SCRIPTS``): ``reevaluate_run`` over phase 8's two
     generations, each row equal to the one the loop wrote within
     ``TOL_REEVALUATE``, and generation 2's rows on a cut of the sets equal
@@ -88,12 +96,16 @@ fatal on failure:
     (cut from 800), 2-ply starts in both colours; ``draw_bucket_diagnosis``
     at its defaults; ``draw_bucket_experiment`` on phase 8's generation 2,
     one epoch of each of the five default variants; ``finalize_fullset`` on
-    phase 8's run and the full sets (``verify_supervised`` at 10 epochs).
+    phase 8's run and the full sets (``verify_supervised`` at 10 epochs);
+    ``pallas_eval_speed`` at its defaults (gen-161 at B=2048 and 4096, its
+    |dv| and |dp| between the library's convolutions and the kernel held to
+    the JAX script's own on the same boards, ``EVAL_SPEED_JAX``, plus
+    ``TOL_VALUE_PRIOR``).
     The tools of a folded bf16 net (``matches``, ``evaluate_posn``, the
     measurement tools, ``measure_compile``, ``k_head_to_head``) must launch
     the kernel and the others must not, every batch they launch must have
     been compared, the plain tower is never entered;
-12. [dp] data parallelism with four ranks from two torchrun agents (two
+13. [dp] data parallelism with four ranks from two torchrun agents (two
     nodes of two ranks, ``--rdzv_backend c10d`` on a local port; each rank
     is this script re-entered as ``chip_smoke.py --dp-rank DIR``), all on
     ``cuda:0`` through gloo (NCCL refuses ranks that share a card); a rank
@@ -117,15 +129,15 @@ fatal on failure:
     at the depth of phase 8 (no match), then a resumed one, every rank
     starting at the same generation. Each rank's launches by batch go
     through the [shapes] check, and no rank may enter the plain tower;
-13. a one-rank NCCL group takes one data-parallel step, bit for bit the
+14. a one-rank NCCL group takes one data-parallel step, bit for bit the
     single-process step;
-14. [host] ``HostMCTS`` and ``GridSearch`` choose the tactic table's moves,
+15. [host] ``HostMCTS`` and ``GridSearch`` choose the tactic table's moves,
     and the batched search on the card agrees with ``HostMCTS``; the exact
     solver builds with g++ and agrees with exhaustive minimax on 300
     late-game positions of seeded random playouts;
-15. [supervisor] the supervisor runs ``cli training --device cuda
+16. [supervisor] the supervisor runs ``cli training --device cuda
     --generations 1`` on a tiny config; the child exits 0 with a checkpoint;
-16. print the ``kernels`` JSON line, the card's name and power limit, and
+17. print the ``kernels`` JSON line, the card's name and power limit, and
     last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
@@ -201,13 +213,26 @@ GENERATION = dict(
 WIDTHS = (4, 24, 48, 96, 128, 256)
 WIDTH_BOARDS = (4096, 512, 64, 1)
 WIDE_BOARDS = (4096, 2048, 1024, 512, 392, 256, 128, 64, 49, 1)
-# [time] of the other instantiations (F=64 is gen-161's, phase 3), each with
-# a fresh net at full depth
-TIME_WIDTHS = (16, 32, 128, 256)
+# ... and above 256 filters, where the layer kernel runs one conv a launch
+# (packed to 320, 384 and 512), at LAYER_BOARDS, and the [wider] phase's
+# width also at every batch its generations launch (a 64-slot pool at K=8:
+# 64 roots and 512 leaves; the match's 49 and 392). The emulated plain
+# version costs about 4x F=256's a board at F=512, so the list stays short.
+LAYER_WIDTHS = (264, 384, 512)
+LAYER_BOARDS = (512, 64, 1)
+WIDER_BOARDS = (512, 392, 64, 49, 1)
+# [time] of the other instantiations (F=64 is gen-161's, phase 3) and of the
+# layer kernel, each with a fresh net at full depth
+TIME_WIDTHS = (16, 32, 128, 256, 320, 384, 512)
 WIDE_TIME_BOARDS = (4096, 2048, 512, 64)
 # [wide]: two training generations of phase 8's depth with a fresh net of
 # 256 filters, the width of AlphaGo Zero's and AlphaZero's towers
 WIDE_NET = dict(filters=256, n_fc_layers=6, n_residuals=6, compute_dtype="bfloat16")
+# [wider]: the same with 512 filters (the layer kernel's widest), cut to 128
+# games in 64 slots and 5 epochs at batch 1024 (128 games give about 3,200
+# positions), so that its batches are few and the emulation can hold them
+WIDER_NET = dict(WIDE_NET, filters=512)
+WIDER_DEPTH = dict(games=128, slots=64, batch_size=1024)
 
 # Stated limits of the learner on the card against the CPU after three steps
 # at batch 512 (phase 6). float32: IEEE float32 on both, summed in different
@@ -424,19 +449,29 @@ def fresh_folded(f: int, dev):
     return config, folded, tower.pack_weights(config, folded)
 
 
+def compare_boards(f: int):
+    """The batches [compare] holds a fresh net of ``f`` filters at."""
+    if f == WIDE_NET["filters"]:
+        return WIDE_BOARDS
+    if f == WIDER_NET["filters"]:
+        return WIDER_BOARDS
+    return LAYER_BOARDS if f in LAYER_WIDTHS else WIDTH_BOARDS
+
+
 def compare_widths(dev, generator):
-    """[compare] at every width of ``WIDTHS``: a fresh folded net at full
-    depth, its packed (padded) weights through the kernel and both plain
+    """[compare] at every width of ``WIDTHS`` and ``LAYER_WIDTHS``: a fresh
+    folded net at full depth, its packed (padded) weights through the
+    kernel (the fused one, or above 256 the layer kernel) and both plain
     versions. Returns the error sets ``{F: {B: sets}}``."""
     from connect4_tpu_torch.models import tower
 
     errs = {}
-    for f in WIDTHS:
+    for f in WIDTHS + LAYER_WIDTHS:
         t0 = time.perf_counter()
         _, _, packed = fresh_folded(f, dev)
         fp = packed["conv1_w"].shape[1]
         errs[f] = {}
-        for b in WIDE_BOARDS if f == WIDE_NET["filters"] else WIDTH_BOARDS:
+        for b in compare_boards(f):
             e = errs[f][b] = compare_kernel(tower, packed, board_rows(b, generator, dev))
             limit = max(TOL_TOWER_MEAN, TOL_NEAREST_SPREAD * e["spread"]["tower_mean"])
             log(f"[compare] F={f} (packed {fp}) B={b}: padded channels all 0 {e['padded_zero']}; {show(e)}; "
@@ -585,11 +620,13 @@ def time_train_step(dev, generator):
     return out
 
 
-def drive_generations(dev, shapes, save_dir, net=GENERATION["net"], label="generation"):
-    """Phase 8 (and [wide] with ``net=WIDE_NET``): two generations of
-    ``TrainingLoop`` at ``GENERATION``'s depth with a fresh net of widths
-    ``net`` in ``save_dir``, the second in a new loop that resumes from the
-    first one's checkpoint. Phase 8's run stays for the [scripts] phase."""
+def drive_generations(dev, shapes, save_dir, net=GENERATION["net"], label="generation", depth=None):
+    """Phase 8 (and [wide] with ``net=WIDE_NET``, [wider] with
+    ``net=WIDER_NET`` and ``depth=WIDER_DEPTH``): two generations of
+    ``TrainingLoop`` at ``GENERATION``'s depth (with ``depth``'s entries in
+    place of its own) with a fresh net of widths ``net`` in ``save_dir``,
+    the second in a new loop that resumes from the first one's checkpoint.
+    Phase 8's run stays for the [scripts] phase."""
     import numpy as np
     import torch
 
@@ -600,7 +637,7 @@ def drive_generations(dev, shapes, save_dir, net=GENERATION["net"], label="gener
     from connect4_tpu_torch.training.loop import TrainingLoop
     from connect4_tpu_torch.training.tables import load_table
 
-    G = GENERATION
+    G = {**GENERATION, **(depth or {})}
 
     def counting(method, counts, name):
         def run(*args, **kwargs):
@@ -634,7 +671,7 @@ def drive_generations(dev, shapes, save_dir, net=GENERATION["net"], label="gener
             counts = {"selfplay": 0, "match": 0}
             loop._generate_games = counting(loop._generate_games, counts, "selfplay")
             loop._match = counting(loop._match, counts, "match")
-            tower.run_tower.launches = 0
+            tower.run_tower.launches = tower.run_tower.layer_launches = 0
             t0 = time.perf_counter()
             loop.run(generations=1)
             torch.cuda.synchronize()
@@ -671,6 +708,7 @@ def drive_generations(dev, shapes, save_dir, net=GENERATION["net"], label="gener
             phases = dict(loop.timer.seconds)
             info = {
                 "generation": gen, "seconds": seconds, "phases": phases, "moves": moves,
+                "layer_launches": tower.run_tower.layer_launches,
                 "moves_per_s": moves / phases["generate"], "positions": int(len(values)),
                 "train_steps": len(losses), "first_loss": losses[0], "last_loss": losses[-1],
                 "match": match, "launches": dict(counts),
@@ -681,6 +719,11 @@ def drive_generations(dev, shapes, save_dir, net=GENERATION["net"], label="gener
             width = tower.kernel_width(net["filters"])
             if set(info["launches_by_width"]) != {width}:
                 fail(f"[{label} {gen}] launches by width {info['launches_by_width']}: expected F={width} only")
+            # above 256 filters every conv of every forward is a launch of the layer kernel
+            per_forward = 1 + 2 * net["n_residuals"] if tower.is_layer_width(width) else 0
+            if info["layer_launches"] != per_forward * (counts["selfplay"] + counts["match"]):
+                fail(f"[{label} {gen}] {info['layer_launches']} layer kernel launches for "
+                     f"{counts['selfplay'] + counts['match']} tower forwards at F={width}")
             generations.append(info)
             log(f"[{label}] {gen}{' (resumed in a new loop)' if gen == 2 else ''}: {seconds:.2f} s = "
                 + ", ".join(f"{k} {v:.2f}" for k, v in phases.items())
@@ -688,8 +731,9 @@ def drive_generations(dev, shapes, save_dir, net=GENERATION["net"], label="gener
                 f"{len(losses)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}; every game replays on the "
                 f"host board; match vs centre "
                 f"{match['wins']}-{match['draws']}-{match['losses']} (return {match['return']:.3f}); "
-                f"tower kernel launches: self-play {counts['selfplay']}, match {counts['match']}; "
-                f"plain tower entered {len(plain_calls)} times")
+                f"tower kernel launches: self-play {counts['selfplay']}, match {counts['match']}"
+                + (f" (layer kernel launches {info['layer_launches']})" if per_forward else "")
+                + f"; plain tower entered {len(plain_calls)} times")
     return {"config": {**G, "net": net}, "generations": generations}
 
 
@@ -712,11 +756,12 @@ def watching_plain(tower):
         tower.tower_plain = plain
 
 
-def wide_phase(dev, shapes):
+def wide_phase(dev, shapes, net=WIDE_NET, label="wide", depth=None):
     """[wide]: phase 8's two generations with a fresh net of ``WIDE_NET``'s
-    widths (256 filters) in a directory of their own."""
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_wide_") as save_dir:
-        return drive_generations(dev, shapes, save_dir, net=WIDE_NET, label="wide")
+    widths (256 filters) in a directory of their own; [wider] the same with
+    ``WIDER_NET`` (512 filters, the layer kernel) at ``WIDER_DEPTH``."""
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{label}_") as save_dir:
+        return drive_generations(dev, shapes, save_dir, net=net, label=label, depth=depth)
 
 
 def gen161_match(net, dev, shapes):
@@ -763,6 +808,14 @@ SCRIPTS = dict(
     k_head_to_head=dict(ka=8, kb=16, sims=256, plies=2),  # sims cut from 800
     draw_bucket_experiment=dict(gen=2, epochs=1),
 )
+# ``pallas_eval_speed`` at its defaults: the JAX script's own two routes
+# (the folded net in XLA bf16 against the Pallas tower) differ on its boards
+# by these max |dv| and |dp| at B=2048 and 4096, computed on the CPU by
+# tests/test_torch_eval_speed.py, which pins them: two bf16 routes of
+# gen-161 that round at other points differ by several hundredths on some
+# board of thousands of random planes. The port's routes on the card are
+# held to these plus TOL_VALUE_PRIOR.
+EVAL_SPEED_JAX = {2048: (0.0648, 0.0250), 4096: (0.0595, 0.0216)}
 POSITION = ". . . . . . .\n. . . . . . .\n. . . . . . .\n. . . x . . .\n. . o o x . .\n. x o o x o .\n"
 TOL_REEVALUATE = 1e-5  # a re-evaluated row against the one the loop wrote
 # ``reevaluate_run`` of generation 2 on the card against the same tool on
@@ -824,7 +877,7 @@ def reevaluate_card_and_cpu(reevaluate_run, run_dir, data_dir, tmp, dev):
 
 
 def scripts_phase(dev, shapes, run_dir):
-    """Phase 11, [scripts]: every tool at full width on the card through
+    """Phase 12, [scripts]: every tool at full width on the card through
     its plain function: ``reevaluate_run`` over the two phase-8
     generations (each row equal to the loop's own within TOL_REEVALUATE, and
     generation 2's rows on a cut of the sets equal to the CPU's within
@@ -834,7 +887,8 @@ def scripts_phase(dev, shapes, run_dir):
     ``verify_supervised`` (one epoch), ``ship_run_artifacts``,
     ``measure_compile`` (its cold phases in a child process),
     ``k_head_to_head``, ``draw_bucket_diagnosis``,
-    ``draw_bucket_experiment`` and ``finalize_fullset``. Each tool is driven
+    ``draw_bucket_experiment``, ``finalize_fullset`` and
+    ``pallas_eval_speed``. Each tool is driven
     with the kernel's count set to 0 and read after it (``measure_compile``
     adds its child's launches, which the child counts by batch); a tool of
     a folded bf16 net must launch the kernel, the others (the learner's
@@ -858,6 +912,7 @@ def scripts_phase(dev, shapes, run_dir):
         k_head_to_head,
         matches,
         measure_compile,
+        pallas_eval_speed,
         profile_search,
         reevaluate_run,
         selfplay_breakdown,
@@ -920,6 +975,8 @@ def scripts_phase(dev, shapes, run_dir):
                 run_dir, dx["gen"], data_dir, epochs=dx["epochs"], device=dev)),
             ("finalize_fullset", False, lambda: finalize_fullset.finalize(
                 config_file, os.path.join(tmp, "finalized"), device=dev)),
+            ("pallas_eval_speed", True, lambda: pallas_eval_speed.eval_speed(
+                load_example_net(device=dev), device=dev)),
         ]
         seconds = {}
         for name, launches_kernel, drive in tools:
@@ -1067,6 +1124,19 @@ def scripts_phase(dev, shapes, run_dir):
         f"{fz_losses[0]:.4f} -> {fz_losses[-1]:.4f}")
     if len(fz_losses) != 10 or not np.isfinite(fz_losses).all():
         problems.append(f"finalize_fullset: verify_supervised losses {fz_losses}")
+    es = out["pallas_eval_speed"]
+    if [row["batch"] for row in es["rows"]] != sorted(EVAL_SPEED_JAX):
+        problems.append(f"pallas_eval_speed: batches {[row['batch'] for row in es['rows']]}, not its defaults")
+    for row in es["rows"]:
+        jdv, jdp = EVAL_SPEED_JAX.get(row["batch"], (0.0, 0.0))
+        log(f"[scripts] pallas_eval_speed: gen-161 at B={row['batch']}: kernel first call "
+            f"{row['first_s']:.3f} s; max |dv| {row['max_dv']:.4f}, max |dp| {row['max_dp']:.4f} (the JAX "
+            f"script's {jdv} and {jdp}, limit those + {TOL_VALUE_PRIOR}); library (cuDNN) "
+            f"{row['library_ms']:.3f} ms ({row['library_tflops']:.1f} TFLOP/s), kernel {row['kernel_ms']:.3f} ms "
+            f"({row['kernel_tflops']:.1f} TFLOP/s), {es['iters']} calls each")
+        if not (row["max_dv"] <= jdv + TOL_VALUE_PRIOR and row["max_dp"] <= jdp + TOL_VALUE_PRIOR):
+            problems.append(f"pallas_eval_speed: the routes differ by more than the JAX script's {jdv}, {jdp} "
+                            f"+ {TOL_VALUE_PRIOR}: {row}")
     finite = [b["blocking_wave_ms"], b["unsynced_wave_ms"], b["eval_ms"], b["device_busy_share"], ps["sims_per_s"]]
     if not np.isfinite(finite).all() or not 0 < b["device_busy_share"] <= 1:
         problems.append(f"selfplay_breakdown or profile_search: {finite}")
@@ -1367,7 +1437,7 @@ def run_dp_agents(out_dir):
 
 
 def drive_dp(dev, net, shapes):
-    """Phase 12, [dp]: four ranks from two torchrun agents on the one card
+    """Phase 13, [dp]: four ranks from two torchrun agents on the one card
     (gloo), checked; first, one process's pools of as many blocks as
     ranks, with noise off, to hold the ranks' gathered pools against."""
     import numpy as np
@@ -1510,7 +1580,7 @@ def drive_dp(dev, net, shapes):
 
 
 def nccl_one_rank(dev):
-    """Phase 13: a one-rank NCCL group takes one data-parallel step, which
+    """Phase 14: a one-rank NCCL group takes one data-parallel step, which
     must equal the single-process step bit for bit (with cuDNN's
     deterministic algorithms, so that two runs of one step agree)."""
     import torch
@@ -1559,7 +1629,7 @@ TACTICS = [
 
 
 def host_phase(dev):
-    """Phase 14, [host]: the reference searches choose the tactic table's
+    """Phase 15, [host]: the reference searches choose the tactic table's
     moves and the batched search on the card agrees with the host MCTS;
     the solver builds with g++ and agrees with exhaustive minimax on
     late-game positions of seeded random playouts."""
@@ -1632,7 +1702,7 @@ def host_phase(dev):
 
 
 def supervisor_phase():
-    """Phase 15, [supervisor]: the watchdog runs one generation of the
+    """Phase 16, [supervisor]: the watchdog runs one generation of the
     training CLI on the card (a tiny float32 net, 8 games, no match) and the
     child's checkpoint exists."""
     from connect4_tpu_torch.training import checkpoint as ckpt
@@ -1705,7 +1775,7 @@ def main() -> int:
     t0 = time.perf_counter()
     tower._library()
     report["build_s"] = time.perf_counter() - t0
-    log(f"[build] tower kernel ready in {report['build_s']:.1f} s")
+    log(f"[build] tower kernels (fused and layer, one source) ready in {report['build_s']:.1f} s")
     log(build.BUILD_LOGS.get(tower.SOURCE, "(already built)").strip())
 
     net = load_example_net(device=dev)
@@ -1859,10 +1929,12 @@ def main() -> int:
                  f"{generation_shapes}")
         report["match"] = gen161_match(net, dev, shapes)
 
-        # --- 10.-15. [wide]: the generations at 256 filters; the tools, data
-        # parallelism, the host search and solver, the supervisor -------------
+        # --- 10.-16. [wide] and [wider]: the generations at 256 and 512
+        # filters; the tools, data parallelism, the host search and solver,
+        # the supervisor -------------------------------------------------------
         seconds = {}
         for name, phase in (("wide", lambda: wide_phase(dev, shapes)),
+                            ("wider", lambda: wide_phase(dev, shapes, WIDER_NET, "wider", WIDER_DEPTH)),
                             ("scripts", lambda: scripts_phase(dev, shapes, run_dir)),
                             ("dp", lambda: drive_dp(dev, net, shapes)), ("nccl", lambda: nccl_one_rank(dev)),
                             ("host", lambda: host_phase(dev)), ("supervisor", supervisor_phase)):
@@ -1892,8 +1964,26 @@ def main() -> int:
         for b, e in per.items():
             compared_at.setdefault((tower.kernel_width(f), b), []).append(e)
     launched = [e for f, per in counted_shapes.items() for b in per for e in compared_at[f, b]]
+    # the layer kernel's main path: the [wider] generations (every forward at
+    # F=512, 13 launches of the layer kernel each)
+    wider_shapes = {}
+    for g in report["wider"]["generations"]:
+        add_launches(wider_shapes, g["launches_by_width"])
+    wider_forwards = sum(g["launches"]["selfplay"] + g["launches"]["match"] for g in report["wider"]["generations"])
+    layer_launches = sum(g["layer_launches"] for g in report["wider"]["generations"])
+    if layer_launches == 0 or sum(by_batch(wider_shapes).values()) != wider_forwards:
+        fail(f"[wider] launched the layer kernel {layer_launches} times, its forwards by batch {wider_shapes} "
+             f"against {wider_forwards}")
+    layer_launched = [e for f, per in wider_shapes.items() for b in per for e in compared_at[f, b]]
+    wider_width = tower.kernel_width(WIDER_NET["filters"])
+    at_wider = wider_shapes[wider_width]
+    wider_boards = max(at_wider, key=at_wider.get)
+    fused_times = {f: per for f, per in report["times_widths"].items() if not tower.is_layer_width(f)}
+    layer_times = {f: per for f, per in report["times_widths"].items() if tower.is_layer_width(f)}
+    if wider_boards not in layer_times[wider_width]:
+        fail(f"most launches of [wider] are at B={wider_boards}, which was not timed: {wider_shapes}")
 
-    # --- 16. result lines ------------------------------------------------------
+    # --- 17. result lines ------------------------------------------------------
     # time, bound and library time at the batch most launches of phase 8's
     # generations have (their self-play's leaves; F=64); the error is the
     # largest over every width and shape the generations, [wide], the tools
@@ -1928,8 +2018,34 @@ def main() -> int:
                       for b, t in times.items()},
         "by_width": {f: {b: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                          for b, t in per.items()}
-                     for f, per in report["times_widths"].items()},
+                     for f, per in fused_times.items()},
     }]
+    # the layer kernel (towers above 256 filters): time, bound and library
+    # time at F=512 and the batch most of [wider]'s forwards have; its
+    # launches are the layer kernel's own (13 a forward), in [wider]; the
+    # error is the largest over every (width, batch) [wider] launched
+    t_wider = layer_times[wider_width][wider_boards]
+    kernels.append({
+        "name": "tower_layer",
+        "route": "cuda",
+        "source": "connect4_tpu_torch/models/csrc/tower.cu",
+        "replaces": "connect4_tpu/models/pallas_net.py:153",
+        "launches": layer_launches,
+        "forwards": wider_forwards,
+        "launches_by_width": wider_shapes,
+        "filters": wider_width,
+        "boards": wider_boards,
+        "max_abs_err": max(e["model"]["tower_max"] for e in layer_launched),
+        "max_abs_err_nearest": max(e["nearest"]["tower_max"] for e in layer_launched),
+        "ms": t_wider["ms"],
+        "plain_ms": t_wider["plain_ms"],
+        "bound_ms": t_wider["bound_ms"],
+        "bound_by": t_wider["bound_by"],
+        "library_ms": t_wider["library_ms"],
+        "by_width": {f: {b: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                         for b, t in per.items()}
+                     for f, per in layer_times.items()},
+    })
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -31,7 +31,8 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # --split-compile=0 optimises a source's kernels in parallel on every core
-# (the tower has seven instantiations)
+# (the tower's source has fifteen instantiations: seven of the fused kernel,
+# eight of the layer kernel)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",

@@ -13,7 +13,11 @@ sequential reference search (``mcts.host``) and ``eval.grid_search``.
   compared across the two packages and between the host and batched search.
 - ``make_net_evaluator``: a network forward on the planes of the leaf
   boards. With ``fold_bn=True`` and a bf16 net it runs the folded tower
-  of ``models.tower``: on a CUDA state that is the hand-written kernel.
+  of ``models.tower``: on a CUDA state that is a hand-written kernel, the
+  fused one (every layer in one launch) for a net of up to 256 filters,
+  the layer kernel (one launch a conv) from 257 to ``tower.MAX_FILTERS``
+  (512); a wider bf16 net raises. On a CPU state it is the tower's plain
+  version at every width.
 """
 
 from __future__ import annotations
@@ -72,9 +76,10 @@ def make_net_evaluator(net: Connect4Net, fold_bn: bool = True) -> BatchedEvaluat
 
     ``fold_bn=True`` (default) folds the frozen BatchNorms into the convs
     once, here. A bf16 net then runs the folded tower of ``models.tower``
-    (the CUDA kernel on a CUDA state, its plain version on a CPU state); a
-    float32 net runs the folded ``InferenceNet``. ``fold_bn=False`` runs
-    the net as it is."""
+    (a CUDA kernel on a CUDA state: the fused kernel up to 256 filters, the
+    layer kernel above; its plain version on a CPU state); a float32 net
+    runs the folded ``InferenceNet``. ``fold_bn=False`` runs the net as it
+    is."""
     config = net.config
     if not fold_bn:
         model = net.eval()

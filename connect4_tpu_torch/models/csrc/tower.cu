@@ -107,6 +107,41 @@
 //   for bit as at F <= 64. Rows are 256 / 512 bytes, swizzled by the low
 //   three bits of the row, and the zero row is a whole row long.
 //
+// Layer kernel (towers wider than 256 filters; tower.py pads F to the next
+// multiple of 64, Fp = 320 ... 512). A block cannot hold such a tower: the two
+// resident [128, Fp] tiles alone are 256 KB at 512, an m64nFp accumulator
+// would take Fp/2 registers a thread, and wgmma's N is at most 256.
+// - tower_layer<N, kFirst> runs one conv a launch (13 for six residual
+//   blocks), as XLA does at these widths: the activations go through device
+//   memory between layers (tower.py's wrapper holds them in two [B*42, Fp]
+//   bf16 buffers; the second conv of a block adds the skip from the block's
+//   input in place). At Fp=512 and B=4096 that is about 5.5 GB over 13
+//   launches, 1.6 ms at 3.35 TB/s, against the 9.85 ms the operations take
+//   at 989 TFLOP/s (2.38 GFLOP a board): bound by operations.
+// - A block is two warpgroups on 3 whole boards (126 rows in two 64-row
+//   tiles), so a tap never reads past them, and one column tile of N = Fp/2
+//   (160, 192, 224 or 256): grid = 2 x ceil(B/3) blocks, the two column tiles
+//   of a row tile neighbours. It stages its whole [128, Fp] bf16 input tile
+//   in shared memory (128 KB at 512), swizzled as above, and reads the A
+//   operand with ldmatrix from addresses that carry the tap's shift and mask
+//   (off-board taps read a zero row). The weights stream as 16-deep slabs of
+//   the column tile (16 x N, 5-8 KB) by cp.async.bulk through a ring of 8
+//   with full/empty mbarriers, in commit groups of two slabs with
+//   double-buffered A fragments, as in tower_kernel_wide; the image is
+//   tower.py::layer_image, the slabs in the order they are multiplied. The
+//   whole layer chains in one m64nN accumulator from zero (9Fp/16 steps) in
+//   (tap, channel) order, the order tower_plain sums it in, so the kernel
+//   and its emulation agree bit for bit. The input conv is the first launch,
+//   its A fragments built in registers as above. The epilogue adds the bias
+//   (and the skip) in float32, applies the LeakyReLU, rounds to bf16 and
+//   writes the valid rows straight to device memory.
+// - Limit: Fp = 512, the widest input tile that fits beside the 64 KB ring in
+//   the 227 KB a block may use (about 195 KB at 512; one block an SM).
+// - What will likely hold it back: every block reads its column tile's
+//   weights from L2 for its 126 rows (at Fp=512, B=4096: 2,732 blocks x 2.4
+//   MB x 12 layers, about 77 GB), nearer than the tensor cores at the L2's
+//   few TB/s; a cluster multicasting each slab would divide that.
+//
 // Interface: plain C, loaded with ctypes. The kernel runs on the caller's
 // stream, allocates nothing, and the functions return cudaGetLastError().
 
@@ -1016,6 +1051,337 @@ int launch_wide(const float* x, const __nv_bfloat16* conv1_img, const __nv_bfloa
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// ---------------------------------------------------------------------------
+// Towers wider than 256 filters (see "Layer kernel" in the header): one conv
+// layer a launch at a packed width Fp = 2N, N = 160, 192, 224 or 256 columns
+// a block.
+
+// wgmma m64nNk16 at the layer kernel's column tiles (N = 256 is above): the
+// accumulator's register names and operands 16 at a time
+#define C4_R0 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define C4_R1 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define C4_R2 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+#define C4_R3 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define C4_R4 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+#define C4_R5 ", %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define C4_R6 ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111"
+#define C4_D16(i)                                                                               \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]),    \
+      "+f"(d[i + 6]), "+f"(d[i + 7]), "+f"(d[i + 8]), "+f"(d[i + 9]), "+f"(d[i + 10]),          \
+      "+f"(d[i + 11]), "+f"(d[i + 12]), "+f"(d[i + 13]), "+f"(d[i + 14]), "+f"(d[i + 15])
+// N, the accumulator's register names, then the operand numbers of the A
+// fragment, the descriptor and scale-d, then the accumulator's operands
+#define C4_MMA(N_, REGS, A, DESC, SCALE, ...)                                                   \
+  template <>                                                                                   \
+  struct Mma<N_> {                                                                              \
+    static __device__ __forceinline__ void add(float (&d)[N_ / 2], const uint32_t (&a)[4],      \
+                                               uint64_t desc, uint32_t scale_d) {               \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #SCALE ", 0;\n"                         \
+                   "wgmma.mma_async.sync.aligned.m64n" #N_ "k16.f32.bf16.bf16 {" REGS "}, " A  \
+                   ", %" #DESC ", p, 1, 1, 0;\n}\n"                                             \
+                   : __VA_ARGS__                                                                \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));      \
+    }                                                                                           \
+  };
+C4_MMA(160, C4_R0 C4_R1 C4_R2 C4_R3 C4_R4, "{%80, %81, %82, %83}", 84, 85,
+       C4_D16(0), C4_D16(16), C4_D16(32), C4_D16(48), C4_D16(64))
+C4_MMA(192, C4_R0 C4_R1 C4_R2 C4_R3 C4_R4 C4_R5, "{%96, %97, %98, %99}", 100, 101,
+       C4_D16(0), C4_D16(16), C4_D16(32), C4_D16(48), C4_D16(64), C4_D16(80))
+C4_MMA(224, C4_R0 C4_R1 C4_R2 C4_R3 C4_R4 C4_R5 C4_R6, "{%112, %113, %114, %115}", 116, 117,
+       C4_D16(0), C4_D16(16), C4_D16(32), C4_D16(48), C4_D16(64), C4_D16(80), C4_D16(96))
+#undef C4_MMA
+#undef C4_D16
+#undef C4_R0
+#undef C4_R1
+#undef C4_R2
+#undef C4_R3
+#undef C4_R4
+#undef C4_R5
+#undef C4_R6
+
+constexpr int kLayerTiles = 2;  // column tiles of a layer (tower.LAYER_TILES)
+
+template <int N>
+struct LayerCfg {
+  static constexpr int kFp = kLayerTiles * N;        // the packed width
+  static constexpr int kRows = kWarpgroups * 64;
+  static constexpr int kValidRows = kTileBoards * kArea;
+  static constexpr int kRB = 2 * kFp;                 // bytes per staged input row
+  static constexpr int kChunks = kFp / 8;             // 16-byte chunks per row
+  static constexpr int kKS = kFp / 16;                // slabs per tap
+  static constexpr int kSlabBytes = 2 * 16 * N;       // one 16-deep slab of a column tile
+  static constexpr int kGroup = 2;                    // slabs a commit group multiplies
+  static constexpr int kStages = 8;                   // the ring: 40-64 KB
+  static constexpr int kGroups = kStages / kGroup;
+  static constexpr int kLayerGroups = 9 * kKS / kGroup;
+  // offsets from a 128-byte aligned base
+  static constexpr int kXOff = 0;                     // the input rows [kRows][kFp], swizzled
+  static constexpr int kZeroOff = kRows * kRB;        // one zero row
+  static constexpr int kRingOff = kZeroOff + kRB;
+  static constexpr int kBiasOff = kRingOff + kStages * kSlabBytes;
+  static constexpr int kKtabOff = kBiasOff + N * 4;
+  static constexpr int kXinOff = kKtabOff + kMaxK0 * 4;  // the input conv's planes [kRows][4] bf16
+  static constexpr int kBarOff = kXinOff + kRows * 8;
+  static constexpr int kSmem = kBarOff + (2 * kStages + 1) * 8 + 128;  // + alignment slack
+  static_assert(kRB % 128 == 0 && kChunks % 8 == 0, "rows swizzle in whole groups of 8 chunks");
+  static_assert(kSlabBytes % 128 == 0 && kBiasOff % 128 == 0 && kBarOff % 8 == 0, "alignment");
+  static_assert(kKS % kGroup == 0 && kLayerGroups % 2 == 0, "groups tile a layer in pairs");
+  static_assert(kMaxK0 / 16 <= kStages, "the input conv's weights fit the ring");
+  static_assert(kSmem <= 232448, "a block's shared memory");
+};
+
+// the taps of row `row` of a 3-board tile that lie on its board (bit tap);
+// none for the rows past the tile's boards
+__device__ __forceinline__ uint32_t board_tap_mask(int row) {
+  if (row >= kTileBoards * kArea) return 0u;
+  const int p = row % kArea, r = p / kWidth, c = p % kWidth;
+  uint32_t m = 0;
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int rr = r + tap / 3 - 1, cc = c + tap % 3 - 1;
+    if (rr >= 0 && rr < kHeight && cc >= 0 && cc < kWidth) m |= 1u << tap;
+  }
+  return m;
+}
+
+// One conv of the tower on 3 boards (126 rows) and one column tile of N:
+// out[rows, n0:n0+N] = lrelu(sum over taps and channels of in x W + b (+ skip)),
+// rounded to bf16. kFirst: the input conv on float32 planes [rows, cin0];
+// otherwise `in` is the previous layer's bf16 output [rows, Fp]. `skip` (or
+// null) is added in float32 before the LeakyReLU; it may be `out` itself,
+// since each element is read and then written by one thread.
+template <int N, bool kFirst>
+__global__ void __launch_bounds__(kThreads, 1)
+tower_layer(const void* __restrict__ in, const __nv_bfloat16* __restrict__ w_img,
+            const __nv_bfloat16* __restrict__ bias_g, const __nv_bfloat16* skip,
+            __nv_bfloat16* out, int n_boards, int cin0) {
+  using C = LayerCfg<N>;
+  constexpr int ND = N / 2;  // accumulator registers per thread
+  constexpr int G = C::kGroup;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u);
+  unsigned char* X = smem + C::kXOff;
+  float* bias = reinterpret_cast<float*>(smem + C::kBiasOff);  // [N]
+  uint32_t* ktab = reinterpret_cast<uint32_t*>(smem + C::kKtabOff);
+  uint16_t* xin = reinterpret_cast<uint16_t*>(smem + C::kXinOff);
+  const uint32_t x_s = smem_u32(X), zero_s = smem_u32(smem + C::kZeroOff);
+  const uint32_t ring_s = smem_u32(smem + C::kRingOff);
+  const uint32_t bar_s = smem_u32(smem + C::kBarOff);
+  // barriers: full[s] at bar_s + 8s, empty[s] at bar_s + 8(C::kStages + s),
+  // the input conv's weights last
+  const uint32_t bar_w = bar_s + 16 * C::kStages;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wg = tid >> 7;
+  const int w4 = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile_n = blockIdx.x % kLayerTiles;  // the two column tiles of a row tile are neighbours
+  const long row_base = long(blockIdx.x / kLayerTiles) * C::kValidRows;
+  const long total_rows = long(n_boards) * kArea;
+  const int valid_rows =
+      int(total_rows - row_base < C::kValidRows ? total_rows - row_base : C::kValidRows);
+  const int ksteps0 = (9 * cin0 + 15) / 16;  // the input conv's slabs
+  // this column tile's image: its slabs one after another (tower.layer_image)
+  const unsigned char* w_bytes = reinterpret_cast<const unsigned char*>(w_img) +
+                                 size_t(tile_n) * (kFirst ? ksteps0 : 9 * C::kKS) * C::kSlabBytes;
+
+  // Thread 0 copies commit group `q` (slabs qG .. qG+G-1) into their stages,
+  // once every warp has released the group that used them before.
+  auto load_group = [&](int q) {
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int slab = q * G + i;
+      const int s = slab % C::kStages;
+      const uint32_t use = uint32_t(slab / C::kStages);
+      if (use > 0) mbar_wait(bar_s + 8 * (C::kStages + s), (use - 1) & 1u);
+      mbar_expect_tx(bar_s + 8 * s, C::kSlabBytes);
+      bulk_copy(ring_s + s * C::kSlabBytes, w_bytes + size_t(slab) * C::kSlabBytes, C::kSlabBytes,
+                bar_s + 8 * s);
+    }
+  };
+
+  // --- barriers, first weight copies ---------------------------------------
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(bar_s + 8 * s, 1);
+      mbar_init(bar_s + 8 * (C::kStages + s), kWarpgroups * 4);  // lane 0 of each warp
+    }
+    mbar_init(bar_w, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if constexpr (kFirst) {
+      mbar_expect_tx(bar_w, uint32_t(ksteps0) * C::kSlabBytes);
+      bulk_copy(ring_s, w_bytes, uint32_t(ksteps0) * C::kSlabBytes, bar_w);
+    } else {
+      for (int q = 0; q < C::kGroups - 2; ++q) load_group(q);
+    }
+  }
+
+  // --- the input rows, the zero row, the bias -------------------------------
+  if constexpr (kFirst) {
+    const float* x = static_cast<const float*>(in);
+    for (int k = tid; k < kMaxK0; k += kThreads) {  // as in tower_kernel
+      uint32_t e = 0;
+      if (k < 9 * cin0) {
+        const int tap = k / cin0, ci = k % cin0;
+        const int off = (tap / 3 - 1) * kWidth + (tap % 3 - 1);
+        e = (uint32_t(off) & 0xFFu) | (uint32_t(ci) << 8) | (0x10000u << tap);
+      }
+      ktab[k] = e;
+    }
+    for (int i = tid; i < C::kRows * 4; i += kThreads) {
+      const int row = i >> 2, ci = i & 3;
+      const float v = (ci < cin0 && row < valid_rows) ? x[(row_base + row) * cin0 + ci] : 0.f;
+      xin[i] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    }
+  } else {
+    const uint4* src = static_cast<const uint4*>(in) + row_base * C::kChunks;
+    for (int i = tid; i < C::kRows * C::kChunks; i += kThreads) {
+      const int row = i / C::kChunks, c = i % C::kChunks;
+      const uint4 v = row < valid_rows ? src[i] : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(X + row * C::kRB + ((uint32_t(c) ^ (uint32_t(row) & 7u)) << 4)) = v;
+    }
+    for (int i = tid; i < C::kRB / 4; i += kThreads)
+      reinterpret_cast<uint32_t*>(smem + C::kZeroOff)[i] = 0u;
+  }
+  for (int i = tid; i < N; i += kThreads) bias[i] = __bfloat162float(bias_g[tile_n * N + i]);
+  __syncthreads();
+
+  // rows this thread addresses for ldmatrix (lane & 15) and owns in the
+  // accumulator (g, g + 8) in its warpgroup's tile
+  const int tile_row = wg * 64 + w4 * 16;
+  const int row_l = tile_row + (lane & 15);
+  const int row_g = tile_row + g;
+
+  float acc[ND];
+  if constexpr (kFirst) {
+    // --- the input conv: A built in registers from the staged planes -------
+    mbar_wait(bar_w, 0);
+    const int r0 = row_g, r1 = r0 + 8;
+    const uint32_t m0 = board_tap_mask(r0), m1 = board_tap_mask(r1);
+    auto val = [&](int row, uint32_t m, int k) -> uint32_t {
+      const uint32_t e = ktab[k];
+      const int off = int(int8_t(e & 0xFFu));
+      const int ci = int((e >> 8) & 0xFFu);
+      return (m & (e >> 16)) ? uint32_t(xin[(row + off) * 4 + ci]) : 0u;
+    };
+    auto pair = [&](int row, uint32_t m, int k) -> uint32_t {
+      return val(row, m, k) | (val(row, m, k + 1) << 16);
+    };
+    uint32_t a[kMaxK0 / 16][4];
+#pragma unroll
+    for (int s = 0; s < kMaxK0 / 16; ++s) {
+      const int k = 16 * s + 2 * t;
+      a[s][0] = pair(r0, m0, k);
+      a[s][1] = pair(r1, m1, k);
+      a[s][2] = pair(r0, m0, k + 8);
+      a[s][3] = pair(r1, m1, k + 8);
+    }
+#pragma unroll
+    for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kMaxK0 / 16; ++s)
+      if (s < ksteps0) Mma<N>::add(acc, a[s], b_desc<N>(ring_s + s * C::kSlabBytes), s > 0 ? 1u : 0u);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+  } else {
+    // --- a residual conv: 9 taps x kKS slabs, one chain from zero -----------
+    const uint32_t mask_l = board_tap_mask(row_l);
+    // Issue commit group j (G slabs of one tap) with its A fragments in `a`;
+    // then, with at most this group in flight, release the previous group's
+    // stages and let thread 0 copy the group kGroups - 2 ahead into the
+    // stages released one group earlier.
+    auto step = [&](int j, uint32_t (&a)[G][4]) {
+      const int tap = j / (C::kKS / G);
+      const int kk = (j % (C::kKS / G)) * G;
+      const int src_row = row_l + (tap / 3 - 1) * kWidth + (tap % 3 - 1);
+      const bool on = (mask_l >> tap) & 1u;
+      const uint32_t row_s = on ? x_s + uint32_t(src_row) * C::kRB : zero_s;
+      const uint32_t swz = on ? uint32_t(src_row) & 7u : 0u;
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        ldmatrix_x4(a[i], row_s + ((uint32_t(2 * (kk + i) + (lane >> 4)) ^ swz) << 4));
+      const int slab = j * G;
+      uint32_t w_s[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const int s = (slab + i) % C::kStages;
+        mbar_wait(bar_s + 8 * s, uint32_t((slab + i) / C::kStages) & 1u);
+        w_s[i] = ring_s + s * C::kSlabBytes;
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        Mma<N>::add(acc, a[i], b_desc<N>(w_s[i]), (j > 0 || i > 0) ? 1u : 0u);
+      wgmma_commit();
+      if (j > 0) {
+        wgmma_wait<1>();
+        if (lane == 0) {
+#pragma unroll
+          for (int i = 0; i < G; ++i)
+            mbar_arrive(bar_s + 8 * (C::kStages + (slab - G + i) % C::kStages));
+        }
+      }
+      const int nxt = j + C::kGroups - 2;
+      if (tid == 0 && nxt < C::kLayerGroups) load_group(nxt);
+    };
+
+    uint32_t a0[G][4], a1[G][4];
+#pragma unroll 1
+    for (int j = 0; j < C::kLayerGroups; j += 2) {
+      step(j, a0);
+      step(j + 1, a1);
+    }
+    wgmma_wait<0>();
+    reg_fence(acc);
+  }
+
+  // --- bias, skip, LeakyReLU, round to bf16, store the valid rows -----------
+  // Accumulator layout: acc[4j + 2h + e] is row g + 8h, column 8j + 2t + e of
+  // the warp's 16 rows and the block's column tile.
+  const int n0 = tile_n * N;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_g + 8 * h;
+      if (row < valid_rows) {
+        const size_t at = size_t(row_base + row) * C::kFp + n0 + 8 * j + 2 * t;
+        float y0 = acc[4 * j + 2 * h] + b.x;
+        float y1 = acc[4 * j + 2 * h + 1] + b.y;
+        if (skip != nullptr) {
+          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(skip + at));
+          y0 += x.x;
+          y1 += x.y;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(lrelu(y0), lrelu(y1));
+      }
+    }
+  }
+}
+
+template <int N, bool kFirst>
+int launch_layer(const void* in, const __nv_bfloat16* w_img, const __nv_bfloat16* bias,
+                 const __nv_bfloat16* skip, __nv_bfloat16* out, int n_boards, int cin0,
+                 cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        tower_layer<N, kFirst>, cudaFuncAttributeMaxDynamicSharedMemorySize, LayerCfg<N>::kSmem);
+    if (err != cudaSuccess) return int(err);
+    configured = true;
+  }
+  const int blocks = kLayerTiles * ((n_boards + kTileBoards - 1) / kTileBoards);
+  tower_layer<N, kFirst><<<blocks, kThreads, LayerCfg<N>::kSmem, stream>>>(
+      in, w_img, bias, skip, out, n_boards, cin0);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1062,6 +1428,38 @@ int c4_tower_forward(const void* x, const void* conv1_img, const void* conv1_b,
                      int cin0, int filters, int n_res_layers, void* stream) {
   return c4_tower_forward_chain(x, conv1_img, conv1_b, res_img, res_b, out, n_boards, cin0,
                                 filters, n_res_layers, kShippedChain, stream);
+}
+
+// One conv of a tower wider than 256 filters (the layer kernel), at a packed
+// width `filters` of 320, 384, 448 or 512. first != 0: the input conv, `in`
+// float32 [n_boards*42, cin] with cin <= 4, `w_img` conv1's image
+// [2, 16*ceil(9*cin/16) * filters/2] and `skip` null. Otherwise a residual
+// conv, `in` bf16 [n_boards*42, filters], cin == filters, `w_img` the layer's
+// image [2, 9*filters * filters/2] (tower.py::layer_image: per column tile of
+// filters/2, its 16-deep slabs in (tap, channel) order, each as smem_image
+// lays it out) and `skip` null or bf16 [n_boards*42, filters], which may be
+// `out`. bias: [filters] bf16; out: bf16 [n_boards*42, filters]. Returns a
+// cudaError_t.
+int c4_tower_layer(const void* in, const void* w_img, const void* bias, const void* skip,
+                   void* out, int n_boards, int cin, int filters, int first, void* stream) {
+  if (n_boards <= 0) return int(cudaSuccess);
+  if (first ? (cin < 1 || cin > kMaxCin0 || skip != nullptr) : cin != filters)
+    return int(cudaErrorInvalidValue);
+  const auto* w = static_cast<const __nv_bfloat16*>(w_img);
+  const auto* b = static_cast<const __nv_bfloat16*>(bias);
+  const auto* k = static_cast<const __nv_bfloat16*>(skip);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+#define C4_LAYER(N_)                                                           \
+  if (filters == kLayerTiles * N_)                                             \
+    return first ? launch_layer<N_, true>(in, w, b, k, o, n_boards, cin, s)    \
+                 : launch_layer<N_, false>(in, w, b, k, o, n_boards, cin, s);
+  C4_LAYER(160)
+  C4_LAYER(192)
+  C4_LAYER(224)
+  C4_LAYER(256)
+#undef C4_LAYER
+  return int(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

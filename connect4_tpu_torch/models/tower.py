@@ -23,12 +23,16 @@ shared-memory images the kernel's matrix descriptors read (``conv1_img``,
 ``res_img``), and ``tile_plan`` mirrors the launcher's choice of tile.
 
 Widths. The kernel is instantiated at ``KERNEL_FILTERS``; a net of any
-other width up to ``MAX_FILTERS`` runs at the next instantiated one
-(``kernel_width``): ``pack_weights`` pads the conv weights and biases with
-zeros, so the padded channels stay exactly 0 through every layer and add
-nothing to the real ones, and ``heads`` reads the real channels only. The
-plain version computes on the same padded tensors, so the CPU and the card
-compute one function. A wider net raises.
+other width up to 256 runs at the next instantiated one (``kernel_width``).
+A wider net, up to ``MAX_FILTERS``, runs at the next multiple of
+``LAYER_STEP`` through the layer kernel of ``csrc/tower.cu``, one conv a
+launch (13 launches at six residual blocks), with the activations in device
+memory between layers; ``run_tower.layer_launches`` counts its launches.
+``pack_weights`` pads the conv weights and biases with zeros, so the padded
+channels stay exactly 0 through every layer and add nothing to the real
+ones, and ``heads`` reads the real channels only. The plain version
+computes on the same padded tensors, so the CPU and the card compute one
+function. A net wider than ``MAX_FILTERS`` raises.
 
 Numerics (both versions, as in the Pallas kernel): inputs rounded to bf16,
 bf16 weights, float32 accumulation, float32 bias add, LeakyReLU, a round
@@ -62,11 +66,17 @@ from connect4_tpu_torch.models.net import lrelu
 from connect4_tpu_torch.types import AREA, HEIGHT, WIDTH
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "tower.cu")
-KERNEL_FILTERS = (16, 32, 64, 128, 256)  # widths the kernel is instantiated for
-# The widest tower a block can hold: wgmma's N is at most 256, and the two
-# [128 rows, F] bf16 activation tiles (128 KB at F=256) and the weight ring
-# fill the 227 KB of shared memory a block may use.
-MAX_FILTERS = KERNEL_FILTERS[-1]
+KERNEL_FILTERS = (16, 32, 64, 128, 256)  # widths the fused kernel is instantiated for
+# 256 is the widest tower a block can hold (wgmma's N is at most 256; the two
+# [128 rows, F] bf16 activation tiles, 128 KB at F=256, and the weight ring
+# fill the 227 KB of shared memory a block may use). Above it the layer
+# kernel takes one conv a launch, at the width padded to a multiple of
+# LAYER_STEP, in LAYER_TILES column tiles of Fp / LAYER_TILES (160, 192, 224
+# or 256, wgmma's N). Its limit, MAX_FILTERS: a block stages its whole
+# [128, Fp] bf16 input tile (128 KB at 512) beside a 64 KB weight ring.
+LAYER_STEP = 64
+LAYER_TILES = 2
+MAX_FILTERS = 512
 MAX_CHANNELS = 4
 # How many terms of a residual conv's 9*Cin-deep sum form one product before
 # a float32 add: "step" 16 (one tensor-core step), "tap" Cin (one tap),
@@ -86,14 +96,22 @@ _BF16 = torch.bfloat16
 
 def kernel_width(filters: int) -> int:
     """The width the tower runs at for a net of ``filters``: the narrowest
-    of ``KERNEL_FILTERS`` that holds it. Raises above ``MAX_FILTERS``."""
+    of ``KERNEL_FILTERS`` that holds it, or above 256 the next multiple of
+    ``LAYER_STEP`` (the layer kernel). Raises above ``MAX_FILTERS``."""
     if not 1 <= filters <= MAX_FILTERS:
         raise ValueError(
-            f"tower: filters {filters} is outside 1..{MAX_FILTERS}; a block of the tower "
-            f"kernel holds at most {MAX_FILTERS} channels (wgmma N <= 256, and two "
-            f"[128, F] bf16 activation tiles plus the weight ring in 227 KB of shared memory)"
+            f"tower: filters {filters} is outside 1..{MAX_FILTERS}; the layer kernel stages a "
+            f"block's [128, F] bf16 input rows ({128 * 2 * MAX_FILTERS // 1024} KB at F={MAX_FILTERS}) "
+            f"beside its 64 KB weight ring in the 227 KB of shared memory a block may use"
         )
-    return next(w for w in KERNEL_FILTERS if w >= filters)
+    if filters <= KERNEL_FILTERS[-1]:
+        return next(w for w in KERNEL_FILTERS if w >= filters)
+    return -(-filters // LAYER_STEP) * LAYER_STEP
+
+
+def is_layer_width(fp: int) -> bool:
+    """Whether the packed width ``fp`` runs through the layer kernel."""
+    return fp > KERNEL_FILTERS[-1]
 
 
 def tower_bound(config: NetConfig, boards: int):
@@ -117,8 +135,9 @@ def pack_weights(config: NetConfig, folded: Dict[str, torch.Tensor]) -> Dict[str
     device. 3x3 kernels become im2col matrices ``[9*Cin, F]`` with rows in
     (dr, dc, cin) order, as ``pack_weights`` of the Pallas tower makes them.
     ``conv1_img`` and ``res_img`` hold the same values as the shared-memory
-    images the CUDA kernel copies in and multiplies from (``smem_image``).
-    Biases are rounded to bf16, as there.
+    images the CUDA kernel copies in and multiplies from: ``smem_image`` at
+    a fused width, ``layer_image`` (column tiles) at a layer width. Biases
+    are rounded to bf16, as there.
 
     The tower's tensors are at ``kernel_width(config.filters)``: conv output
     channels, residual input channels and biases padded with zeros. The
@@ -150,12 +169,18 @@ def pack_weights(config: NetConfig, folded: Dict[str, torch.Tensor]) -> Dict[str
     conv1_w = im2col(folded["conv0.weight"], config.channels).contiguous()
     depth0 = conv1_w.shape[0]
     conv1_pad = F.pad(conv1_w, (0, 0, 0, -depth0 % 16))  # depth up to a multiple of 16
+    if is_layer_width(fp):
+        conv1_img = layer_image(conv1_pad)  # [LAYER_TILES, 16*ceil(9*channels/16) * fp/LAYER_TILES]
+        res_img = layer_image(res_w)  # [2n, LAYER_TILES, 9*fp * fp/LAYER_TILES]
+    else:
+        conv1_img = smem_image(conv1_pad)  # [16*ceil(9*channels/16) * fp]
+        res_img = smem_image(res_w.unflatten(1, (9, fp)))  # [2n, 9, fp*fp], one tap each
     return {
         "conv1_w": conv1_w,  # [9*channels, fp]
-        "conv1_img": smem_image(conv1_pad),  # [16*ceil(9*channels/16) * fp]
+        "conv1_img": conv1_img,
         "conv1_b": bias("conv0.bias"),  # [fp]
         "res_w": res_w.contiguous(),  # [2n, 9*fp, fp]
-        "res_img": smem_image(res_w.unflatten(1, (9, fp))),  # [2n, 9, fp*fp], one tap each
+        "res_img": res_img,
         "res_b": res_b.contiguous(),  # [2n, fp]
         "vh_conv_w": folded["vh_conv.weight"].detach().reshape(1, f).T.contiguous().to(_BF16),
         "vh_conv_b": bf("vh_conv.bias"),
@@ -189,10 +214,27 @@ def smem_image_inverse(img: torch.Tensor, n: int) -> torch.Tensor:
     return v.permute(*range(v.dim() - 4), -4, -1, -3, -2).flatten(-4, -3).flatten(-2).contiguous()
 
 
+def layer_image(w: torch.Tensor) -> torch.Tensor:
+    """``[..., K, Fp]`` -> ``[..., LAYER_TILES, K*N]``, the image the layer
+    kernel streams: the columns cut into ``LAYER_TILES`` tiles of ``N = Fp /
+    LAYER_TILES``, each tile's ``[K, N]`` as ``smem_image`` lays it out, so
+    that its 16-deep slabs (``16*N`` elements each) follow one another in
+    the order the kernel multiplies them: tap, then input channel."""
+    fp = w.shape[-1]
+    return smem_image(w.unflatten(-1, (LAYER_TILES, fp // LAYER_TILES)).movedim(-2, -3))
+
+
+def layer_image_inverse(img: torch.Tensor, fp: int) -> torch.Tensor:
+    """``layer_image`` undone: ``[..., LAYER_TILES, K*N]`` -> ``[..., K, fp]``."""
+    tiles = smem_image_inverse(img, fp // LAYER_TILES)  # [..., T, K, N]
+    return tiles.movedim(-3, -2).flatten(-2).contiguous()
+
+
 def tile_plan(n_boards: int) -> Tuple[int, int]:
-    """``(boards per block, blocks)`` as the kernel's launcher takes them:
-    3 boards, two 64-row tiles, one per warpgroup, at every batch, so that
-    small batches spread over the card."""
+    """``(boards per block, blocks)`` as the fused kernel's launcher takes
+    them: 3 boards, two 64-row tiles, one per warpgroup, at every batch, so
+    that small batches spread over the card. The layer kernel launches
+    ``LAYER_TILES`` blocks (column tiles) for each of these."""
     return TILE_BOARDS, -(-n_boards // TILE_BOARDS)
 
 
@@ -310,7 +352,8 @@ def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     lib.c4_tower_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.c4_tower_forward_chain.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    for fn in (lib.c4_tower_forward, lib.c4_tower_forward_chain):
+    lib.c4_tower_layer.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    for fn in (lib.c4_tower_forward, lib.c4_tower_forward_chain, lib.c4_tower_layer):
         fn.restype = ctypes.c_int
     return lib
 
@@ -328,42 +371,82 @@ def _tower_cuda(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) 
     rows, cin = x2d.shape
     f = packed["conv1_w"].shape[1]
     n_layers = packed["res_img"].shape[0]
-    if rows % AREA or f not in KERNEL_FILTERS or not 1 <= cin <= MAX_CHANNELS:
+    layered = is_layer_width(f)
+    if (rows % AREA or not 1 <= cin <= MAX_CHANNELS
+            or not (f in KERNEL_FILTERS or (layered and f <= MAX_FILTERS and f % LAYER_STEP == 0))):
         raise ValueError(
             f"tower kernel takes [B*42, C<= {MAX_CHANNELS}] rows and packed widths F in "
-            f"{KERNEL_FILTERS} (pack_weights pads a net of up to {MAX_FILTERS} filters to "
-            f"one of them); got rows {rows}, C {cin}, F {f}"
+            f"{KERNEL_FILTERS} or multiples of {LAYER_STEP} up to {MAX_FILTERS} (pack_weights "
+            f"pads a net of up to {MAX_FILTERS} filters to one of them); got rows {rows}, C {cin}, F {f}"
         )
+    if layered and chain not in (None, CHAIN):
+        raise ValueError(f"the layer kernel (F {f}) sums a layer as one chain; got chain {chain}")
     dev = x2d.device
+    depth0 = -(-9 * cin // 16) * 16
+    if layered:
+        n = f // LAYER_TILES
+        img_shapes = (LAYER_TILES, depth0 * n), (n_layers, LAYER_TILES, 9 * f * n)
+    else:
+        img_shapes = (depth0 * f,), (n_layers, 9, f * f)
     _check(x2d, "x", torch.float32, (rows, cin), dev)
-    _check(packed["conv1_img"], "conv1_img", _BF16, (-(-9 * cin // 16) * 16 * f,), dev)
+    _check(packed["conv1_img"], "conv1_img", _BF16, img_shapes[0], dev)
     _check(packed["conv1_b"], "conv1_b", _BF16, (f,), dev)
-    _check(packed["res_img"], "res_img", _BF16, (n_layers, 9, f * f), dev)
+    _check(packed["res_img"], "res_img", _BF16, img_shapes[1], dev)
     _check(packed["res_b"], "res_b", _BF16, (n_layers, f), dev)
     out = torch.empty((rows, f), dtype=_BF16, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        args = (
-            x2d.data_ptr(), packed["conv1_img"].data_ptr(), packed["conv1_b"].data_ptr(),
-            packed["res_img"].data_ptr(), packed["res_b"].data_ptr(), out.data_ptr(),
-            rows // AREA, cin, f, n_layers,
-        )
-        if chain is None:
-            err = lib.c4_tower_forward(*args, stream)
+        if layered:
+            _tower_layers(lib, packed, x2d, out, stream)
         else:
-            err = lib.c4_tower_forward_chain(*args, CHAINS.index(chain), stream)
-    if err != 0:
-        raise RuntimeError(f"tower kernel launch failed with cudaError {err} (F {f}, chain {chain})")
+            args = (
+                x2d.data_ptr(), packed["conv1_img"].data_ptr(), packed["conv1_b"].data_ptr(),
+                packed["res_img"].data_ptr(), packed["res_b"].data_ptr(), out.data_ptr(),
+                rows // AREA, cin, f, n_layers,
+            )
+            if chain is None:
+                err = lib.c4_tower_forward(*args, stream)
+            else:
+                err = lib.c4_tower_forward_chain(*args, CHAINS.index(chain), stream)
+            if err != 0:
+                raise RuntimeError(f"tower kernel launch failed with cudaError {err} (F {f}, chain {chain})")
     run_tower.launches += 1
     return out
 
 
+def _tower_layers(lib, packed: Dict[str, torch.Tensor], x2d: torch.Tensor, out: torch.Tensor, stream) -> None:
+    """The tower at a layer width into ``out``: one launch of the layer
+    kernel a conv, on ``stream``. ``out`` holds a residual block's input
+    and then, the skip added in place, its output; ``y`` (allocated here,
+    on the caller's stream) the block's middle layer."""
+    rows, cin = x2d.shape
+    f = out.shape[1]
+    y = torch.empty_like(out)
+
+    def layer(first, src, img, bias, skip, dst):
+        err = lib.c4_tower_layer(
+            src.data_ptr(), img.data_ptr(), bias.data_ptr(), None if skip is None else skip.data_ptr(),
+            dst.data_ptr(), rows // AREA, cin if first else f, f, int(first), stream)
+        if err != 0:
+            raise RuntimeError(f"tower layer kernel launch failed with cudaError {err} (F {f})")
+        run_tower.layer_launches += 1
+
+    res_img, res_b = packed["res_img"], packed["res_b"]
+    layer(True, x2d, packed["conv1_img"], packed["conv1_b"], None, out)
+    for i in range(res_img.shape[0] // 2):
+        layer(False, out, res_img[2 * i], res_b[2 * i], None, y)
+        layer(False, y, res_img[2 * i + 1], res_b[2 * i + 1], out, out)
+
+
 def run_tower(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) -> torch.Tensor:
     """``[B*42, C]`` float32 rows of ``(board, r, c)`` -> ``[B*42, fp]`` bf16
-    tower output at the packed width. The CUDA kernel for a CUDA tensor; the plain version for
-    a CPU tensor; anything else raises. ``chain`` (one of ``CHAINS``)
-    overrides the shipped chain length, for measurements."""
+    tower output at the packed width. The CUDA kernel for a CUDA tensor (the
+    fused kernel up to 256 filters, the layer kernel above); the plain
+    version for a CPU tensor; anything else raises. ``chain`` (one of
+    ``CHAINS``) overrides the shipped chain length of the fused kernel, for
+    measurements. ``run_tower.launches`` counts tower forwards on the card,
+    ``run_tower.layer_launches`` the layer kernel's launches among them."""
     if x2d.device.type == "cuda":
         return _tower_cuda(packed, x2d, chain)
     if x2d.device.type == "cpu":
@@ -372,6 +455,7 @@ def run_tower(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) ->
 
 
 run_tower.launches = 0
+run_tower.layer_launches = 0
 
 
 # ---------------------------------------------------------------------------

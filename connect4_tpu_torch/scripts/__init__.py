@@ -14,7 +14,8 @@ pickles.
 
 Measurement tools: ``selfplay_breakdown``, ``profile_search``,
 ``profile_refill_wave``, ``sweep_search_batch``, ``descent_depth_profile``,
-``measure_compile``.
+``measure_compile``, ``pallas_eval_speed`` (the tower kernel against the
+library's convolutions on gen-161).
 Run tools: ``matches``, ``reevaluate_run``, ``plot_training_graphs``,
 ``compare_runs``, ``evaluate_posn``, ``view_games``, ``game_stats``,
 ``verify_supervised``, ``ship_run_artifacts``, ``k_head_to_head``,

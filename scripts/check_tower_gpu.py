@@ -8,12 +8,16 @@ each against ``tower_plain`` summed in the same order, with the tensor
 core's accumulate emulated (``model``: the count of differing elements
 should be 0) and rounded to nearest. With ``--time`` it
 then times the kernel per chain length at B=4096, 512 and 64 (CUDA events,
-20 launches after 3 warm-ups).
+20 launches after 3 warm-ups). ``--filters 264 512`` adds fresh nets of
+those widths at full depth (fc 6, res 6), which above 256 filters run
+through the layer kernel: compared at the same batches (every element must
+equal the emulated version, the padded channels must be 0) and, with
+``--time``, timed at B=4096, 512 and 64 beside the bound.
 
 Needs a CUDA card (sm_90a) and nvcc. Exits 1 if the shipped chain exceeds
 the tolerances ``chip_smoke.py`` states against the emulated version.
 
-    python3 scripts/check_tower_gpu.py [--time] [--batches 261 1]
+    python3 scripts/check_tower_gpu.py [--time] [--batches 261 1] [--filters 264 512]
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--time", action="store_true")
     parser.add_argument("--batches", type=int, nargs="+", default=[261, 1])
+    parser.add_argument("--filters", type=int, nargs="*", default=[])
     args = parser.parse_args(argv)
 
     import torch
@@ -57,6 +62,9 @@ def main(argv=None) -> int:
     for f in (16, 32):
         cfg = NetConfig(filters=f, n_fc_layers=2, n_residuals=2, compute_dtype="bfloat16")
         nets[f"random F={f}"] = init_net(cfg, torch.Generator().manual_seed(f), device=dev)
+    for f in args.filters:
+        cfg = NetConfig(filters=f, n_fc_layers=6, n_residuals=6, compute_dtype="bfloat16")
+        nets[f"random F={f}"] = init_net(cfg, torch.Generator().manual_seed(f), device=dev)
     bad = []
     for name, net in nets.items():
         packed = tower.pack_weights(net.config, fold_bn_params(net))
@@ -66,10 +74,14 @@ def main(argv=None) -> int:
                    .reshape(b * 42, net.config.channels).float().contiguous())
             for chain in chains:
                 with torch.no_grad():
+                    layers = tower.run_tower.layer_launches
                     tk = tower.run_tower(packed, x2d, chain=chain)
                     torch.cuda.synchronize()
                     vk, pk = tower.heads(packed, tk)
                     finite = bool(torch.isfinite(tk.float()).all())
+                    padded_zero = not tk[:, net.config.filters:].any()
+                    print(f"[compare] {name} B={b} packed F={tk.shape[1]}: layer launches "
+                          f"{tower.run_tower.layer_launches - layers}, padded channels all 0 {padded_zero}")
                     for ref, tensor_core in (("model", True), ("nearest", False)):
                         tp = tower.tower_plain(packed, x2d, chain, tensor_core)
                         vp, pp = tower.heads(packed, tp)
@@ -81,7 +93,9 @@ def main(argv=None) -> int:
                               f"mean {e[1]:.3g}  |value| max {e[2]:.6g}  |prior| max {e[3]:.6g}"
                               f"{'' if finite else '  NOT FINITE'}", flush=True)
                         if chain == tower.CHAIN and tensor_core and (
-                                not finite or e[1] > TOL_TOWER_MEAN or max(e[2:]) > TOL_VALUE_PRIOR):
+                                not finite or e[1] > TOL_TOWER_MEAN or max(e[2:]) > TOL_VALUE_PRIOR
+                                or not padded_zero
+                                or (tower.is_layer_width(tk.shape[1]) and int((tk != tp).sum()))):
                             bad.append((name, b, e))
     if bad:
         print(f"check_tower_gpu: FAILED: {bad}")
@@ -97,6 +111,17 @@ def main(argv=None) -> int:
                 for chain in tower.CHAINS:
                     ms = timed_ms(lambda: tower.run_tower(packed, x2d, chain=chain))
                     print(f"[time] B={b} chain={chain}: {ms:.4f} ms", flush=True)
+        for f in args.filters:
+            net = nets[f"random F={f}"]
+            packed = tower.pack_weights(net.config, fold_bn_params(net))
+            with torch.no_grad():
+                for b in (4096, 512, 64):
+                    x2d = (to_planes(random_positions(b, gen, dev)).permute(0, 2, 3, 1)
+                           .reshape(b * 42, 3).float().contiguous())
+                    ms = timed_ms(lambda: tower.run_tower(packed, x2d))
+                    bound_ms, bound_by, flops, _ = tower.tower_bound(net.config, b)
+                    print(f"[time] F={f} (packed {tower.kernel_width(f)}) B={b}: {ms:.4f} ms, bound "
+                          f"{bound_ms:.4f} ms by {bound_by}, {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
     return 0
 
 

@@ -99,6 +99,35 @@ def test_kernel_equals_its_emulation_at_every_width():
 
 
 @pytest.mark.gpu
+def test_layer_kernel_equals_its_emulation():
+    """Above 256 filters (F=264 runs at 320, F=512 at 512) the tower runs
+    through the layer kernel, one launch a conv: on fresh nets of two
+    residual blocks it equals the plain version with the tensor core's
+    accumulate emulated on the same packed weights in every element, and
+    the padded channels are 0. A block takes 3 boards and one of two column
+    tiles, so the last row tile holds 1 board at B=64 and 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for f in (264, 512):
+        config = NetConfig(filters=f, n_fc_layers=2, n_residuals=2, compute_dtype="bfloat16")
+        net = init_net(config, torch.Generator().manual_seed(f), device="cuda")
+        packed = tower.pack_weights(config, fold_bn_params(net))
+        for b in (64, 1):
+            x2d = _positions(b, g)
+            with torch.no_grad():
+                forwards, layers = tower.run_tower.launches, tower.run_tower.layer_launches
+                tk = tower.run_tower(packed, x2d)
+                assert tower.run_tower.launches == forwards + 1
+                assert tower.run_tower.layer_launches == layers + 5  # the input conv and 2 x 2
+                tp = tower.tower_plain(packed, x2d, tensor_core=True)
+            torch.cuda.synchronize()
+            assert tk.shape == (b * 42, tower.kernel_width(f))
+            assert int((tk != tp).sum()) == 0, (f, b)
+            assert not tk[:, f:].any(), (f, b)
+
+
+@pytest.mark.gpu
 def test_train_step_on_card_matches_cpu():
     """Three SGD steps (uint8 NCHW batches of 256 legal positions, made-up
     targets) on the card against the same steps on the CPU from the same

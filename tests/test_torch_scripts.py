@@ -60,6 +60,7 @@ TOOLS = [
     "descent_depth_profile", "matches", "reevaluate_run", "plot_training_graphs", "compare_runs",
     "evaluate_posn", "view_games", "game_stats", "verify_supervised", "ship_run_artifacts",
     "measure_compile", "k_head_to_head", "draw_bucket_diagnosis", "draw_bucket_experiment", "finalize_fullset",
+    "pallas_eval_speed",
 ]
 
 
@@ -183,6 +184,7 @@ def test_every_tool_has_help(tool, capsys):
     ("draw_bucket_diagnosis", []),
     ("draw_bucket_experiment", ["--run-dir", "run"]),
     ("finalize_fullset", ["--out", "out"]),
+    ("pallas_eval_speed", []),
 ])
 def test_compute_tools_refuse_a_missing_cuda(tool, argv):
     """The default device is CUDA; without a card a tool raises before it

@@ -7,13 +7,14 @@ in different orders). On the CPU the wrapper runs the plain version; the
 CUDA kernel itself is held against it on the card by ``chip_smoke.py`` and
 by ``tests/test_torch_gpu.py``.
 
-Widths: the kernel is instantiated at ``tower.KERNEL_FILTERS`` and
-``pack_weights`` pads any other width up to ``tower.MAX_FILTERS`` with
-zeros. The width tests hold the padded packing, both forms of the plain
-version and the evaluator against the JAX package at F = 4, 24, 128 and
-256 (one residual block, fc 1, a few boards), on the same weights: Flax
-variables made from a JAX key with numpy-drawn BatchNorm statistics,
-carried over with ``from_flax``."""
+Widths: the fused kernel is instantiated at ``tower.KERNEL_FILTERS`` and
+``pack_weights`` pads any other width up to 256 with zeros; above 256, up to
+``tower.MAX_FILTERS``, the layer kernel runs at the next multiple of
+``tower.LAYER_STEP``. The width tests hold the padded packing, both forms
+of the plain version and the evaluator against the JAX package at F = 4,
+24, 128, 256, 264 and 512 (one residual block, fc 1, a few boards), on the
+same weights: Flax variables made from a JAX key with numpy-drawn
+BatchNorm statistics, carried over with ``from_flax``."""
 
 import dataclasses
 import os
@@ -322,7 +323,7 @@ def test_config_roundtrip_between_packages():
 
 # --- widths the kernel is not instantiated at, and the wide ones -------------
 
-WIDTHS = (4, 24, 128, 256)
+WIDTHS = (4, 24, 128, 256, 264, 512)
 WIDE = dict(n_fc_layers=1, n_residuals=1, compute_dtype="bfloat16")
 
 
@@ -423,8 +424,12 @@ def test_padded_packing_equals_jax_bit_for_bit(wide_net):
     assert mine["res_b"][:, f:].abs().sum() == 0
     taps = mine["res_w"].unflatten(1, (9, fp))
     assert taps[:, :, f:].abs().sum() == 0 and taps[:, :, :, f:].abs().sum() == 0
-    assert torch.equal(tower.smem_image_inverse(mine["res_img"], fp).flatten(1, 2), mine["res_w"])
-    assert torch.equal(tower.smem_image_inverse(mine["conv1_img"], fp)[:27], mine["conv1_w"])
+    if tower.is_layer_width(fp):
+        assert torch.equal(tower.layer_image_inverse(mine["res_img"], fp), mine["res_w"])
+        assert torch.equal(tower.layer_image_inverse(mine["conv1_img"], fp)[:27], mine["conv1_w"])
+    else:
+        assert torch.equal(tower.smem_image_inverse(mine["res_img"], fp).flatten(1, 2), mine["res_w"])
+        assert torch.equal(tower.smem_image_inverse(mine["conv1_img"], fp)[:27], mine["conv1_w"])
 
 
 @pytest.mark.parametrize("tensor_core", [False, True])
@@ -464,14 +469,47 @@ def test_evaluator_at_every_width_matches_jax_evaluator(wide_net):
 
 
 def test_width_above_the_limit_raises():
-    """A net wider than a block holds raises, naming the limit; it is not
-    run some other way."""
+    """A net wider than the layer kernel takes (``tower.MAX_FILTERS``, 512:
+    its staged input tile and weight ring in a block's shared memory)
+    raises, naming the limit; it is not run some other way. Every width up
+    to the limit packs: at most 256 at one of the fused kernel's widths,
+    above at the next multiple of ``tower.LAYER_STEP``."""
+    assert tower.MAX_FILTERS == 512
+    assert [tower.kernel_width(f) for f in (256, 257, 264, 320, 321, 448, 511, 512)] == [
+        256, 320, 320, 320, 384, 448, 512, 512]
     config = NetConfig(filters=tower.MAX_FILTERS + 8, **WIDE)
     with pytest.raises(ValueError, match=f"1..{tower.MAX_FILTERS}"):
         tower.kernel_width(config.filters)
     net = init_net(config, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(ValueError, match="at most 256 channels"):
+    with pytest.raises(ValueError, match="128 KB at F=512"):
         make_net_evaluator(net)
+
+
+@pytest.mark.parametrize("filters", [264, 320, 448, 512])
+def test_layer_weight_image_unpacks_bit_for_bit(filters):
+    """Above 256 filters ``pack_weights`` lays the weights out for the layer
+    kernel: at the next multiple of 64, in two column tiles, each tile's
+    16-deep slabs one after another in (tap, channel) order, each slab as
+    the wgmma descriptor reads it. The images invert to the padded im2col
+    matrices bit for bit, and an element sits where the kernel reads it."""
+    config = NetConfig(filters=filters, n_fc_layers=1, n_residuals=1, compute_dtype="bfloat16")
+    packed = tower.pack_weights(config, fold_bn_params(
+        init_net(config, torch.Generator().manual_seed(filters), device="cpu")))
+    fp = tower.kernel_width(filters)
+    n = fp // tower.LAYER_TILES
+    assert fp % tower.LAYER_STEP == 0 and tower.is_layer_width(fp) and n <= 256
+    res_w, img = packed["res_w"], packed["res_img"]
+    assert img.shape == (2, tower.LAYER_TILES, 9 * fp * n) and img.dtype == torch.bfloat16
+    assert torch.equal(tower.layer_image_inverse(img, fp), res_w)
+    for layer, k, col in [(0, 0, 0), (1, 9 * fp - 1, filters - 1), (0, 4 * fp + 17, n + 5), (1, fp + 3, n - 1)]:
+        tile, c = divmod(col, n)
+        slab, kk = divmod(k, 16)  # 16-deep slab in (tap, channel) order, row in it
+        at = slab * 16 * n + ((kk // 8 * n // 8 + c // 8) * 8 + c % 8) * 8 + kk % 8
+        assert img[layer, tile, at] == res_w[layer, k, col]
+    assert not res_w.unflatten(1, (9, fp))[:, :, filters:].any() and not res_w[:, :, filters:].any()
+    conv1 = tower.layer_image_inverse(packed["conv1_img"], fp)
+    assert packed["conv1_img"].shape == (tower.LAYER_TILES, 32 * n) and conv1.shape == (32, fp)
+    assert torch.equal(conv1[:27], packed["conv1_w"]) and not conv1[27:].any()
 
 
 def test_cli_training_generation_of_a_padded_bf16_net(tmp_path):
@@ -507,6 +545,48 @@ def test_cli_training_generation_of_a_padded_bf16_net(tmp_path):
     with np.load(run / "1" / "games.npz") as games:
         moves, length, result = games["moves"], games["length"], games["result"]
     assert len(result) == 6 and (result != 0).all()
+    for g in range(len(result)):
+        board = THostBoard()
+        for t in range(int(length[g])):
+            assert int(moves[g, t]) in board.valid_moves, (g, t)
+            board.make_move(int(moves[g, t]))
+        assert board.result is not None and board.result.code == int(result[g]), g
+
+
+def test_cli_training_generation_above_256_filters(tmp_path):
+    """``cli training --device cpu`` for one generation of a bf16 net of 264
+    filters, whose tower runs at the layer kernel's packed width 320 (before
+    the layer kernel ``kernel_width`` raised above 256): every game replays
+    legally on the host board and the training loss is finite. The sets
+    directory is empty, so the evaluation over them is skipped."""
+    from connect4_tpu_torch.env.host_board import HostBoard as THostBoard
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = tmp_path / "run"
+    cfg = tmp_path / "cfg.py"
+    cfg.write_text(
+        "from connect4_tpu_torch.config import *\n"
+        "config = AlphaZeroConfig(\n"
+        "    model_config=ModelConfig(net_config=NetConfig(filters=264, n_fc_layers=1, n_residuals=1,\n"
+        "                                                  compute_dtype='bfloat16'),\n"
+        "                             batch_size=64, n_training_epochs=1),\n"
+        f"    storage_config=StorageConfig(save_dir={str(run)!r}, data_dir={str(tmp_path / 'nodata')!r}),\n"
+        "    simulations=8, n_training_games=4, selfplay_batch=4, parallel_sims=4,\n"
+        "    num_sampling_moves=4, n_eval=0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run(
+        [sys.executable, "-m", "connect4_tpu_torch.cli", "training", "-c", str(cfg), "--generations", "1",
+         "--device", "cpu"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    loss = re.search(r"Training loss: (\S+) -> (\S+) over (\d+) steps", proc.stdout)
+    assert loss and int(loss.group(3)) > 0, proc.stdout[-2000:]
+    assert np.isfinite(float(loss.group(1))) and np.isfinite(float(loss.group(2)))
+    with np.load(run / "1" / "games.npz") as games:
+        moves, length, result = games["moves"], games["length"], games["result"]
+    assert len(result) == 4 and (result != 0).all()
     for g in range(len(result)):
         board = THostBoard()
         for t in range(int(length[g])):
