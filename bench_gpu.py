@@ -13,10 +13,12 @@ Prints exactly one JSON line on stdout:
 
 Context goes to stderr: the card's name and power limit as ``nvidia-smi``
 gives them, the workload, the split into self-play and training seconds and
-the throughput. Set BENCH_FAST=1 for a reduced workload; BENCH_GAMES,
-BENCH_SIMS, BENCH_PARALLEL_SIMS, BENCH_SIMS_PER_CALL and BENCH_SLOTS
-override single settings, as for ``bench.py``. A workload other than
-1200 x 800 is scaled linearly to it and marked as scaled on stderr.
+the throughput, and the tower's launches by batch (boards). Set
+BENCH_FAST=1 for a reduced workload; BENCH_GAMES, BENCH_SIMS,
+BENCH_PARALLEL_SIMS, BENCH_SIMS_PER_CALL and BENCH_SLOTS override single
+settings, as for ``bench.py``, and BENCH_FILTERS the net's width (above
+256 filters the tower runs through the layer kernel). A workload other
+than 1200 x 800 is scaled linearly to it and marked as scaled on stderr.
 
 Needs a CUDA card (the tower kernel is built for sm_90a) and ``nvcc``;
 raises without CUDA. Nothing in the port compiles at run time except that
@@ -76,6 +78,7 @@ def main():
     # path. 512 slots at K=8 evaluate leaves at batch 4096.
     default_slots = min(256, n_games // 2) if fast else min(512, n_games)
     slots = int(os.environ.get("BENCH_SLOTS", default_slots))
+    filters = int(os.environ.get("BENCH_FILTERS", 64))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -83,10 +86,10 @@ def main():
     ).stdout.strip()
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
         f"(nvidia-smi: {smi}); torch {torch.__version__}, cuda {torch.version.cuda}")
-    log(f"workload: {n_games} games x {sims} sims")
+    log(f"workload: {n_games} games x {sims} sims, filters {filters}")
     log(f"parallel_sims: {parallel}  sims_per_call: {sims_per_call}  slots: {slots or n_games}")
 
-    net_config = NetConfig(filters=64, n_fc_layers=6, n_residuals=6, compute_dtype="bfloat16")
+    net_config = NetConfig(filters=filters, n_fc_layers=6, n_residuals=6, compute_dtype="bfloat16")
     model_config = ModelConfig(net_config=net_config)
 
     def fresh_state():
@@ -136,6 +139,14 @@ def main():
     train_step = make_train_step(state.net, state.optimizer)
 
     # ---- timed generation --------------------------------------------------
+    by_boards = {}  # the tower's launches by batch
+    launch = tower._tower_cuda
+
+    def counted(packed, x2d, chain=None):
+        by_boards[x2d.shape[0] // 42] = by_boards.get(x2d.shape[0] // 42, 0) + 1
+        return launch(packed, x2d, chain)
+
+    tower._tower_cuda = counted
     tower.run_tower.launches = 0
     torch.cuda.synchronize()
     t_gen = time.time()
@@ -143,6 +154,7 @@ def main():
     torch.cuda.synchronize()
     t_selfplay = time.time() - t_gen
     launches = tower.run_tower.launches
+    tower._tower_cuda = launch
 
     planes, values, policies = training_arrays(out)
     n = len(values)
@@ -168,6 +180,7 @@ def main():
         f"moves: {moves_played}  positions: {n}  train steps: {len(losses)}  "
         f"loss: {losses[0]:.4f} -> {losses[-1]:.4f}  tower kernel launches: {launches}"
     )
+    log(f"tower launches by batch (boards): {dict(sorted(by_boards.items(), reverse=True))}")
     log(
         f"throughput: {moves_played / t_selfplay:,.0f} moves/s, "
         f"{sims_total / t_selfplay:,.0f} sims/s"

@@ -22,8 +22,10 @@ fatal on failure:
    128, 128, 256), a fresh net at full depth (fc 6, res 6) at B=4096, 512,
    64 and 1, and at F=256 also at every shape of phase 8's generations
    (``WIDE_BOARDS``); above 256 filters (``LAYER_WIDTHS``: 264, 384, 512,
-   packed to 320, 384, 512, the layer kernel) at B=512, 64 and 1, and at
-   F=512 also at every shape of [wider] (``WIDER_BOARDS``): 0 elements may differ from
+   520, 1024, packed to 320, 384, 512, 576, 1024, the layer kernel) at
+   B=64 and 1, at 264 and 384 also at B=512, at F=512 also at every shape
+   of [wider] (``WIDER_BOARDS``) and at F=1024 at every shape of [widest]
+   (``WIDEST_BOARDS``): 0 elements may differ from
    the emulated plain version on the same packed weights, and the padded
    channels must be exactly 0. The script records the packed width and
    batch of every launch the paths make and fails if a pair was not among
@@ -40,8 +42,9 @@ fatal on failure:
    the bound of each (the ``kernels`` line reports the batch that most
    launches of the training generations have, B=2048, their leaf batch),
    and with fresh nets at F=16, 32, 128, 256 and (the layer kernel) 320,
-   384, 512 at B=4096, 2048, 512 and 64 (the plain version rounded to
-   nearest only: its emulated form takes tens of seconds at F=256);
+   384, 512, 520, 1024 at B=4096, 2048, 512 and 64 (the plain version
+   rounded to nearest only: its emulated form takes tens of seconds at
+   F=256);
 4. check the search and self-play on the card against the same code on
    the CPU with the deterministic centre evaluator;
 5. drive the self-play path: a generation through
@@ -76,7 +79,13 @@ fatal on failure:
     (``WIDER_NET``), the layer kernel, cut to 128 games in 64 slots and 5
     epochs at batch 1024 (``WIDER_DEPTH``), with phase 8's checks; every
     launch must be at F=512 and compared, every forward 13 launches of the
-    layer kernel, and the plain tower is never entered;
+    layer kernel, and the plain tower is never entered; then [widest]:
+    self-play through ``make_net_evaluator`` + ``make_refill_play_fn`` with
+    a fresh net of 1024 filters (``WIDEST_NET``, the layer kernel in four
+    column tiles), 64 games in 64 slots, K=8, 64 simulations, noise on
+    (``WIDEST``): every game must finish and replay legally on the host
+    board, every launch must be at F=1024 and compared, every forward 13
+    launches of the layer kernel, and the plain tower is never entered;
 12. [scripts] the run and measurement tools of ``connect4_tpu_torch.scripts``
     at full width (``SCRIPTS``): ``reevaluate_run`` over phase 8's two
     generations, each row equal to the one the loop wrote within
@@ -214,16 +223,21 @@ WIDTHS = (4, 24, 48, 96, 128, 256)
 WIDTH_BOARDS = (4096, 512, 64, 1)
 WIDE_BOARDS = (4096, 2048, 1024, 512, 392, 256, 128, 64, 49, 1)
 # ... and above 256 filters, where the layer kernel runs one conv a launch
-# (packed to 320, 384 and 512), at LAYER_BOARDS, and the [wider] phase's
-# width also at every batch its generations launch (a 64-slot pool at K=8:
-# 64 roots and 512 leaves; the match's 49 and 392). The emulated plain
-# version costs about 4x F=256's a board at F=512, so the list stays short.
-LAYER_WIDTHS = (264, 384, 512)
+# (packed to 320, 384, 512, 576 and 1024), at LAYER_BOARDS, except where
+# COMPARE_AT says: the [wider] phase's width at every batch its generations
+# launch (a 64-slot pool at K=8: 64 roots and 512 leaves; the match's 49
+# and 392), 520 (the first width above the layer kernel's old limit of
+# 512) at two, the [widest] phase's width at every batch its self-play
+# launches (64 roots, 512 leaves). The emulated plain version costs about
+# 4x F=256's a board at F=512 and 4x that again at 1024, so the lists stay
+# short.
+LAYER_WIDTHS = (264, 384, 512, 520, 1024)
 LAYER_BOARDS = (512, 64, 1)
 WIDER_BOARDS = (512, 392, 64, 49, 1)
+WIDEST_BOARDS = (512, 64, 1)
 # [time] of the other instantiations (F=64 is gen-161's, phase 3) and of the
 # layer kernel, each with a fresh net at full depth
-TIME_WIDTHS = (16, 32, 128, 256, 320, 384, 512)
+TIME_WIDTHS = (16, 32, 128, 256, 320, 384, 512, 520, 1024)
 WIDE_TIME_BOARDS = (4096, 2048, 512, 64)
 # [wide]: two training generations of phase 8's depth with a fresh net of
 # 256 filters, the width of AlphaGo Zero's and AlphaZero's towers
@@ -233,6 +247,13 @@ WIDE_NET = dict(filters=256, n_fc_layers=6, n_residuals=6, compute_dtype="bfloat
 # positions), so that its batches are few and the emulation can hold them
 WIDER_NET = dict(WIDE_NET, filters=512)
 WIDER_DEPTH = dict(games=128, slots=64, batch_size=1024)
+# [widest]: self-play with a fresh net of 1024 filters (a width the layer
+# kernel takes since it stages its input in k-slabs), 64 games in 64 slots
+WIDEST_NET = dict(WIDE_NET, filters=1024)
+WIDEST = dict(games=64, slots=64, simulations=64, parallel_sims=8, seed=0)
+# the widths [compare] holds at batches of their own (see WIDE_BOARDS and LAYER_BOARDS)
+COMPARE_AT = {WIDE_NET["filters"]: WIDE_BOARDS, WIDER_NET["filters"]: WIDER_BOARDS, 520: (64, 1),
+              WIDEST_NET["filters"]: WIDEST_BOARDS}
 
 # Stated limits of the learner on the card against the CPU after three steps
 # at batch 512 (phase 6). float32: IEEE float32 on both, summed in different
@@ -451,11 +472,7 @@ def fresh_folded(f: int, dev):
 
 def compare_boards(f: int):
     """The batches [compare] holds a fresh net of ``f`` filters at."""
-    if f == WIDE_NET["filters"]:
-        return WIDE_BOARDS
-    if f == WIDER_NET["filters"]:
-        return WIDER_BOARDS
-    return LAYER_BOARDS if f in LAYER_WIDTHS else WIDTH_BOARDS
+    return COMPARE_AT.get(f, LAYER_BOARDS if f in LAYER_WIDTHS else WIDTH_BOARDS)
 
 
 def compare_widths(dev, generator):
@@ -762,6 +779,49 @@ def wide_phase(dev, shapes, net=WIDE_NET, label="wide", depth=None):
     ``WIDER_NET`` (512 filters, the layer kernel) at ``WIDER_DEPTH``."""
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{label}_") as save_dir:
         return drive_generations(dev, shapes, save_dir, net=net, label=label, depth=depth)
+
+
+def widest_phase(dev, shapes):
+    """[widest]: refill self-play with a fresh net of ``WIDEST_NET``'s
+    widths (1024 filters) through ``make_net_evaluator``, at ``WIDEST``."""
+    import torch
+
+    from connect4_tpu_torch.config import MCTSConfig, NetConfig
+    from connect4_tpu_torch.eval.evaluators import make_net_evaluator
+    from connect4_tpu_torch.models import tower
+    from connect4_tpu_torch.models.net import init_net
+    from connect4_tpu_torch.training.self_play import make_refill_play_fn
+    from connect4_tpu_torch.utils import make_generator
+
+    net = init_net(NetConfig(**WIDEST_NET), torch.Generator().manual_seed(WIDEST["seed"]), device=dev)
+    cfg = MCTSConfig(simulations=WIDEST["simulations"], root_dirichlet_alpha=0.3, root_exploration_fraction=0.25,
+                     num_sampling_moves=6, parallel_sims=WIDEST["parallel_sims"])
+    width = tower.kernel_width(WIDEST_NET["filters"])
+    with watching_plain(tower) as plain_calls:
+        play = make_refill_play_fn(make_net_evaluator(net), cfg, WIDEST["slots"], WIDEST["games"], device=dev)
+        torch.cuda.synchronize()
+        tower.run_tower.launches = tower.run_tower.layer_launches = 0
+        t0 = time.perf_counter()
+        out = play(make_generator(WIDEST["seed"], dev))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        forwards, layer_launches = tower.run_tower.launches, tower.run_tower.layer_launches
+    launches_by_width = shapes.take("widest")
+    n_moves = replay_games(out)
+    if int(out.mask.sum()) != n_moves or not (out.result.cpu() != 0).all() or out.result.shape[0] != WIDEST["games"]:
+        fail("[widest] not every game finished")
+    if plain_calls:
+        fail(f"[widest] the plain tower was entered {len(plain_calls)} times on the card")
+    if set(launches_by_width) != {width} or sum(by_batch(launches_by_width).values()) != forwards:
+        fail(f"[widest] launches by width {launches_by_width}: expected {forwards} forwards, all at F={width}")
+    per_forward = 1 + 2 * WIDEST_NET["n_residuals"]
+    if forwards == 0 or layer_launches != per_forward * forwards:
+        fail(f"[widest] {layer_launches} layer kernel launches for {forwards} tower forwards at F={width}")
+    log(f"[widest] {WIDEST['games']} games at F={WIDEST_NET['filters']} (packed {width}), {n_moves} moves in "
+        f"{seconds:.2f} s, {n_moves / seconds:.1f} moves/s; every game replays on the host board; tower "
+        f"forwards {forwards}, layer kernel launches {layer_launches}; plain tower entered {len(plain_calls)} times")
+    return {"config": {**WIDEST, "net": WIDEST_NET}, "seconds": seconds, "moves": n_moves,
+            "forwards": forwards, "layer_launches": layer_launches, "launches_by_width": launches_by_width}
 
 
 def gen161_match(net, dev, shapes):
@@ -1930,11 +1990,12 @@ def main() -> int:
         report["match"] = gen161_match(net, dev, shapes)
 
         # --- 10.-16. [wide] and [wider]: the generations at 256 and 512
-        # filters; the tools, data parallelism, the host search and solver,
-        # the supervisor -------------------------------------------------------
+        # filters, [widest] self-play at 1024; the tools, data parallelism,
+        # the host search and solver, the supervisor -----------------------------
         seconds = {}
         for name, phase in (("wide", lambda: wide_phase(dev, shapes)),
                             ("wider", lambda: wide_phase(dev, shapes, WIDER_NET, "wider", WIDER_DEPTH)),
+                            ("widest", lambda: widest_phase(dev, shapes)),
                             ("scripts", lambda: scripts_phase(dev, shapes, run_dir)),
                             ("dp", lambda: drive_dp(dev, net, shapes)), ("nccl", lambda: nccl_one_rank(dev)),
                             ("host", lambda: host_phase(dev)), ("supervisor", supervisor_phase)):
@@ -1965,7 +2026,8 @@ def main() -> int:
             compared_at.setdefault((tower.kernel_width(f), b), []).append(e)
     launched = [e for f, per in counted_shapes.items() for b in per for e in compared_at[f, b]]
     # the layer kernel's main path: the [wider] generations (every forward at
-    # F=512, 13 launches of the layer kernel each)
+    # F=512) and the [widest] self-play (at F=1024), 13 launches of the layer
+    # kernel a forward
     wider_shapes = {}
     for g in report["wider"]["generations"]:
         add_launches(wider_shapes, g["launches_by_width"])
@@ -1974,7 +2036,8 @@ def main() -> int:
     if layer_launches == 0 or sum(by_batch(wider_shapes).values()) != wider_forwards:
         fail(f"[wider] launched the layer kernel {layer_launches} times, its forwards by batch {wider_shapes} "
              f"against {wider_forwards}")
-    layer_launched = [e for f, per in wider_shapes.items() for b in per for e in compared_at[f, b]]
+    layer_shapes = add_launches(add_launches({}, wider_shapes), report["widest"]["launches_by_width"])
+    layer_launched = [e for f, per in layer_shapes.items() for b in per for e in compared_at[f, b]]
     wider_width = tower.kernel_width(WIDER_NET["filters"])
     at_wider = wider_shapes[wider_width]
     wider_boards = max(at_wider, key=at_wider.get)
@@ -2022,17 +2085,19 @@ def main() -> int:
     }]
     # the layer kernel (towers above 256 filters): time, bound and library
     # time at F=512 and the batch most of [wider]'s forwards have; its
-    # launches are the layer kernel's own (13 a forward), in [wider]; the
-    # error is the largest over every (width, batch) [wider] launched
+    # launches are the layer kernel's own (13 a forward), in [wider] and
+    # [widest]; the error is the largest over every (width, batch) they
+    # launched
     t_wider = layer_times[wider_width][wider_boards]
     kernels.append({
         "name": "tower_layer",
         "route": "cuda",
         "source": "connect4_tpu_torch/models/csrc/tower.cu",
         "replaces": "connect4_tpu/models/pallas_net.py:153",
-        "launches": layer_launches,
-        "forwards": wider_forwards,
-        "launches_by_width": wider_shapes,
+        "launches": layer_launches + report["widest"]["layer_launches"],
+        "launches_by_path": {"wider": layer_launches, "widest": report["widest"]["layer_launches"]},
+        "forwards": wider_forwards + report["widest"]["forwards"],
+        "launches_by_width": layer_shapes,
         "filters": wider_width,
         "boards": wider_boards,
         "max_abs_err": max(e["model"]["tower_max"] for e in layer_launched),

@@ -15,9 +15,8 @@ sequential reference search (``mcts.host``) and ``eval.grid_search``.
   boards. With ``fold_bn=True`` and a bf16 net it runs the folded tower
   of ``models.tower``: on a CUDA state that is a hand-written kernel, the
   fused one (every layer in one launch) for a net of up to 256 filters,
-  the layer kernel (one launch a conv) from 257 to ``tower.MAX_FILTERS``
-  (512); a wider bf16 net raises. On a CPU state it is the tower's plain
-  version at every width.
+  the layer kernel (one launch a conv) above, at any width. On a CPU state
+  it is the tower's plain version at every width.
 """
 
 from __future__ import annotations

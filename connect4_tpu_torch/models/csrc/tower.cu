@@ -107,10 +107,12 @@
 //   for bit as at F <= 64. Rows are 256 / 512 bytes, swizzled by the low
 //   three bits of the row, and the zero row is a whole row long.
 //
-// Layer kernel (towers wider than 256 filters; tower.py pads F to the next
-// multiple of 64, Fp = 320 ... 512). A block cannot hold such a tower: the two
-// resident [128, Fp] tiles alone are 256 KB at 512, an m64nFp accumulator
-// would take Fp/2 registers a thread, and wgmma's N is at most 256.
+// Layer kernel (towers wider than 256 filters, at any width; tower.py pads F
+// to the next multiple of 64 that a column tile N of 256, 224, 192 or 160
+// divides: Fp = 320, 384, 448, 512, 576, 640, 768, ... 1024, ...). A block
+// cannot hold such a tower: the two resident [128, Fp] tiles alone are 256
+// KB at 512, an m64nFp accumulator would take Fp/2 registers a thread, and
+// wgmma's N is at most 256.
 // - tower_layer<N, kFirst> runs one conv a launch (13 for six residual
 //   blocks), as XLA does at these widths: the activations go through device
 //   memory between layers (tower.py's wrapper holds them in two [B*42, Fp]
@@ -118,36 +120,77 @@
 //   input in place). At Fp=512 and B=4096 that is about 5.5 GB over 13
 //   launches, 1.6 ms at 3.35 TB/s, against the 9.85 ms the operations take
 //   at 989 TFLOP/s (2.38 GFLOP a board): bound by operations.
-// - A block is two warpgroups on 3 whole boards (126 rows in two 64-row
-//   tiles), so a tap never reads past them, and one column tile of N = Fp/2
-//   (160, 192, 224 or 256): grid = 2 x ceil(B/3) blocks, the two column tiles
-//   of a row tile neighbours. It stages its whole [128, Fp] bf16 input tile
-//   in shared memory (128 KB at 512), swizzled as above, and reads the A
-//   operand with ldmatrix from addresses that carry the tap's shift and mask
-//   (off-board taps read a zero row). The weights stream as 16-deep slabs of
-//   the column tile (16 x N, 5-8 KB) by cp.async.bulk through a ring of 8
-//   with full/empty mbarriers, in commit groups of two slabs with
-//   double-buffered A fragments, as in tower_kernel_wide; the image is
-//   tower.py::layer_image, the slabs in the order they are multiplied. The
-//   whole layer chains in one m64nN accumulator from zero (9Fp/16 steps) in
-//   (tap, channel) order, the order tower_plain sums it in, so the kernel
-//   and its emulation agree bit for bit. The input conv is the first launch,
-//   its A fragments built in registers as above. The epilogue adds the bias
-//   (and the skip) in float32, applies the LeakyReLU, rounds to bf16 and
-//   writes the valid rows straight to device memory.
-// - Limit: Fp = 512, the widest input tile that fits beside the 64 KB ring in
-//   the 227 KB a block may use (about 195 KB at 512; one block an SM).
-// - What will likely hold it back: every block reads its column tile's
-//   weights from L2 for its 126 rows (at Fp=512, B=4096: 2,732 blocks x 2.4
-//   MB x 12 layers, about 77 GB), nearer than the tensor cores at the L2's
-//   few TB/s; a cluster multicasting each slab would divide that.
+// - Work: a unit is one column tile of N output channels (T = Fp/N of
+//   them) of one row tile of 3 whole boards (126 rows in two 64-row tiles,
+//   so a tap never reads past them). Blocks run in clusters of kCluster
+//   (2, fixed at compile time); the blocks of a cluster take neighbouring row tiles
+//   of the same column tile together, and each cluster walks its units in
+//   turn (a persistent grid of as many clusters as fit, one block an SM),
+//   so the next unit's first copies overlap the last one's epilogue.
+// - A block is warp-specialised: one producer warpgroup (40 registers by
+//   setmaxnreg; one thread issues every copy) and two consumer warpgroups
+//   (232 registers), one m64nN accumulator each.
+// - The input is staged in k-slabs, [128 rows, 64 channels] bf16 (16 KB),
+//   through a ring of two: one TMA tensor copy each (a tensor map on the
+//   [B*42, Fp] activations, made on the host with cuTensorMapEncodeTiled from
+//   the runtime's driver entry point, since the library links no libcuda;
+//   128-byte swizzle, rows past the batch read as 0). Chosen over a
+//   slab-major activation layout because the activations, the skip, the
+//   heads and the plain version keep one [rows, Fp] layout. Shared memory no
+//   longer grows with Fp, so no width is too wide. The A operand comes from
+//   the staged slab by ldmatrix at addresses that carry the tap's shift and
+//   mask (off-board taps read a zero row): no patch matrix.
+// - Weights: a stage is one tap of one k-slab, 64 x N (20-32 KB), copied by
+//   one cp.async.bulk from tower.py::layer_image (per column tile, the
+//   16-deep slabs in the order they are multiplied) through a ring of 6 (N
+//   = 256, 224) or 8 stages. Stage s is filled by block s % kCluster with
+//   .multicast::cluster into every block of the cluster; every consumer warp of the
+//   cluster releases it on the filling block's empty barrier (a remote
+//   arrive), and the other block expects the bytes on its own full barrier.
+//   That halves the L2 weight stream (at Fp=512, B=4096: 77 GB without, as
+//   every block reads its tile's weights for its 126 rows). A cluster of 1
+//   (an edited copy) is 0.7-3.9% slower at B=4096, the batch of 73% of a
+//   full generation's forwards (bench_gpu.py at 512 filters), and between
+//   4% faster and 1% slower at B <= 512 (PERF.md section 6).
+// - Summation order: the whole layer chains in one accumulator from zero in
+//   (k-slab, tap, channel) order, 9Fp/16 steps; tower.py's layer_k_order is
+//   that order and tower_plain sums in it, so the kernel and its emulation
+//   agree bit for bit. A tap's 4 products are one commit group with its own
+//   set of A fragments; three sets, two groups in flight (wait_group 2).
+// - The input conv is the first launch (kFirst): its A fragments are built
+//   in registers from the float32 planes, its weights one stage.
+// - The epilogue adds the bias (and the skip, read whole into registers
+//   before the last products end) in float32, applies the LeakyReLU, rounds
+//   to bf16 and writes the valid rows straight to device memory.
+// - Measured (PERF.md section 6): at Fp=512, B=4096 60% of the bf16 peak,
+//   1.4x the earlier design that staged a block's whole [128, Fp] input
+//   tile; with the tensor cores switched off the same pipeline
+//   takes 47% of the time, so copies and barriers are not yet hidden behind
+//   the products. The first version of this design copied one 16-deep slab
+//   (8 KB) a stage and ran at 40%: one thread spends a few hundred clocks on
+//   each copy's barrier wait, expect-tx and issue, which capped the weight
+//   stream at about 16 bytes a clock an SM whatever the ring depth, commit
+//   group or cluster size. Still exposed: the epilogue (the tensor cores
+//   idle while a unit's outputs are written), and at small batches the few
+//   units (B=64 at Fp=512: 22 units on 44 of 132 SMs).
+// - A wait that outlasts 2^33 SM clocks (4.3 s at the card's top clock of
+//   1980 MHz, longer below it) traps (mbar_wait_or_trap), so that a broken
+//   handshake across a cluster ends in an error instead of holding the card.
+//   A trap leaves a sticky error on the process's CUDA context: every later
+//   CUDA call of that process fails, and only a new process recovers. A
+//   wait of a sound run lasts microseconds (one copy from L2 or memory, or
+//   the other block's products of one stage). The SM clock counts on while
+//   another context's time slice runs, so on a time-sliced card a sound wait
+//   traps only if other work holds this kernel off its SMs for over 4 s.
 //
 // Interface: plain C, loaded with ctypes. The kernel runs on the caller's
 // stream, allocates nothing, and the functions return cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -1054,8 +1097,8 @@ int launch_wide(const float* x, const __nv_bfloat16* conv1_img, const __nv_bfloa
 // ---------------------------------------------------------------------------
 // ---------------------------------------------------------------------------
 // Towers wider than 256 filters (see "Layer kernel" in the header): one conv
-// layer a launch at a packed width Fp = 2N, N = 160, 192, 224 or 256 columns
-// a block.
+// layer a launch at a packed width Fp = T x N, N = 160, 192, 224 or 256
+// columns a unit of work.
 
 // wgmma m64nNk16 at the layer kernel's column tiles (N = 256 is above): the
 // accumulator's register names and operands 16 at a time
@@ -1100,35 +1143,43 @@ C4_MMA(224, C4_R0 C4_R1 C4_R2 C4_R3 C4_R4 C4_R5 C4_R6, "{%112, %113, %114, %115}
 #undef C4_R5
 #undef C4_R6
 
-constexpr int kLayerTiles = 2;  // column tiles of a layer (tower.LAYER_TILES)
+constexpr int kLayerConsumers = 2;                         // warpgroups multiplying, 64 rows each
+constexpr int kLayerThreads = (kLayerConsumers + 1) * 128;  // and one producer warpgroup
+constexpr int kProducer = kLayerConsumers * 128;            // the thread that issues every copy
+constexpr int kSlabChannels = 64;                           // input channels a staged k-slab holds
+constexpr int kInStages = 2;                                // the input ring: 2 k-slabs of 16 KB
+constexpr int kInSlabBytes = 128 * kSlabChannels * 2;       // [128 rows][64 channels] bf16
+constexpr int kCluster = 2;                                 // blocks a weight stage is multicast to
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kSmemLimit = 232448;                          // a block's shared memory
 
 template <int N>
 struct LayerCfg {
-  static constexpr int kFp = kLayerTiles * N;        // the packed width
-  static constexpr int kRows = kWarpgroups * 64;
-  static constexpr int kValidRows = kTileBoards * kArea;
-  static constexpr int kRB = 2 * kFp;                 // bytes per staged input row
-  static constexpr int kChunks = kFp / 8;             // 16-byte chunks per row
-  static constexpr int kKS = kFp / 16;                // slabs per tap
-  static constexpr int kSlabBytes = 2 * 16 * N;       // one 16-deep slab of a column tile
-  static constexpr int kGroup = 2;                    // slabs a commit group multiplies
-  static constexpr int kStages = 8;                   // the ring: 40-64 KB
-  static constexpr int kGroups = kStages / kGroup;
-  static constexpr int kLayerGroups = 9 * kKS / kGroup;
-  // offsets from a 128-byte aligned base
-  static constexpr int kXOff = 0;                     // the input rows [kRows][kFp], swizzled
-  static constexpr int kZeroOff = kRows * kRB;        // one zero row
-  static constexpr int kRingOff = kZeroOff + kRB;
-  static constexpr int kBiasOff = kRingOff + kStages * kSlabBytes;
-  static constexpr int kKtabOff = kBiasOff + N * 4;
-  static constexpr int kXinOff = kKtabOff + kMaxK0 * 4;  // the input conv's planes [kRows][4] bf16
-  static constexpr int kBarOff = kXinOff + kRows * 8;
-  static constexpr int kSmem = kBarOff + (2 * kStages + 1) * 8 + 128;  // + alignment slack
-  static_assert(kRB % 128 == 0 && kChunks % 8 == 0, "rows swizzle in whole groups of 8 chunks");
-  static_assert(kSlabBytes % 128 == 0 && kBiasOff % 128 == 0 && kBarOff % 8 == 0, "alignment");
-  static_assert(kKS % kGroup == 0 && kLayerGroups % 2 == 0, "groups tile a layer in pairs");
-  static_assert(kMaxK0 / 16 <= kStages, "the input conv's weights fit the ring");
-  static_assert(kSmem <= 232448, "a block's shared memory");
+  static constexpr int kValidRows = kTileBoards * kArea;        // 126 of the 128 rows
+  static constexpr int kSlabBytes = 2 * 16 * N;                 // one 16-deep weight slab of a column tile
+  // A weight stage is one tap of an input k-slab: 4 slabs, 64 x N, one copy
+  // and one commit group (4 products). Copies this large keep the single
+  // issuing thread's few hundred clocks a copy off the critical path.
+  static constexpr int kStageBytes = 4 * kSlabBytes;
+  static constexpr int kBuffers = 3;                            // A fragment sets: 2 groups in flight
+  // offsets from a 1024-byte aligned base (the 128-byte swizzle of a tensor
+  // copy repeats every 1024 bytes)
+  static constexpr int kInOff = 0;
+  static constexpr int kZeroOff = kInStages * kInSlabBytes;     // one zero row of 128 bytes
+  static constexpr int kRingOff = kZeroOff + 1024;
+  // as many stages as fit, at most 8, an even number (stage s is filled by
+  // block s % kCluster)
+  static constexpr int kFit = (kSmemLimit - kRingOff - 2048) / kStageBytes;
+  static constexpr int kWStages = (kFit > 8 ? 8 : kFit) & ~1;
+  static constexpr int kBarOff = kRingOff + kWStages * kStageBytes;
+  // in_full[kInStages], in_empty[kInStages], w_full[kWStages], w_empty[kWStages]
+  static constexpr int kSmem = kBarOff + 2 * (kInStages + kWStages) * 8 + 1024;  // + alignment slack
+  static_assert(kStageBytes % 1024 == 0 && kBarOff % 8 == 0, "alignment");
+  static_assert(9 % kBuffers == 0, "a k-slab's 9 groups cycle through the fragment sets");
+  static_assert(kWStages >= 4 && kWStages % kCluster == 0, "ring");
+  static_assert(kMaxK0 / 16 <= 4, "the input conv's slabs fit one stage");
+  static_assert(kSmem <= kSmemLimit, "a block's shared memory");
 };
 
 // the taps of row `row` of a 3-board tile that lie on its board (bit tap);
@@ -1145,241 +1196,423 @@ __device__ __forceinline__ uint32_t board_tap_mask(int row) {
   return m;
 }
 
-// One conv of the tower on 3 boards (126 rows) and one column tile of N:
-// out[rows, n0:n0+N] = lrelu(sum over taps and channels of in x W + b (+ skip)),
-// rounded to bf16. kFirst: the input conv on float32 planes [rows, cin0];
-// otherwise `in` is the previous layer's bf16 output [rows, Fp]. `skip` (or
-// null) is added in float32 before the LeakyReLU; it may be `out` itself,
-// since each element is read and then written by one thread.
+__device__ __forceinline__ uint32_t special_reg(int which) {
+  uint32_t v;
+  switch (which) {
+    case 0: asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v)); break;
+    case 1: asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(v)); break;
+    default: asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(v)); break;
+  }
+  return v;
+}
+// mbar_wait for the layer kernel, whose barriers span the blocks of a
+// cluster: a wait that outlasts 2^33 clocks traps, which poisons the
+// process's CUDA context (see "Layer kernel" in the header)
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  for (int i = 0;; ++i) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 33)) {
+      asm volatile("trap;\n");
+    }
+  }
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// arrive on the barrier at `bar` (an offset in this block's shared memory) of
+// block `cta` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+// the same bytes into `dst` and complete_tx on `bar` of every block in `mask`
+__device__ __forceinline__ void bulk_copy_multicast(uint32_t dst, const void* src, uint32_t bytes,
+                                                    uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+// the box at (x = channel, y = row) of a tensor map, swizzled as the map says
+__device__ __forceinline__ void tensor_copy_2d(uint32_t dst, const CUtensorMap* map, int x, int y,
+                                               uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// One conv of the tower: out[rows, :] = lrelu(sum over taps and channels of
+// in x W + b (+ skip)), rounded to bf16, at a packed width fp = T * N (T
+// column tiles of N). kFirst: the input conv on float32 planes [rows, cin];
+// otherwise the previous layer's bf16 output [rows, fp], read through
+// `in_map` in [128 rows, 64 channels] k-slabs. `skip` (or null) is added in
+// float32 before the LeakyReLU; it may be `out` itself, since each element
+// is read and then written by one thread. A unit of work is one column tile
+// of the row tiles of a cluster's blocks (3 boards each); each cluster walks
+// its units in turn (see "Layer kernel" in the header).
 template <int N, bool kFirst>
-__global__ void __launch_bounds__(kThreads, 1)
-tower_layer(const void* __restrict__ in, const __nv_bfloat16* __restrict__ w_img,
-            const __nv_bfloat16* __restrict__ bias_g, const __nv_bfloat16* skip,
-            __nv_bfloat16* out, int n_boards, int cin0) {
+__global__ void __launch_bounds__(kLayerThreads, 1)
+tower_layer(const __grid_constant__ CUtensorMap in_map, const float* __restrict__ planes,
+            const __nv_bfloat16* __restrict__ w_img, const __nv_bfloat16* __restrict__ bias_g,
+            const __nv_bfloat16* skip, __nv_bfloat16* out, int n_boards, int cin, int fp) {
   using C = LayerCfg<N>;
   constexpr int ND = N / 2;  // accumulator registers per thread
-  constexpr int G = C::kGroup;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u);
-  unsigned char* X = smem + C::kXOff;
-  float* bias = reinterpret_cast<float*>(smem + C::kBiasOff);  // [N]
-  uint32_t* ktab = reinterpret_cast<uint32_t*>(smem + C::kKtabOff);
-  uint16_t* xin = reinterpret_cast<uint16_t*>(smem + C::kXinOff);
-  const uint32_t x_s = smem_u32(X), zero_s = smem_u32(smem + C::kZeroOff);
-  const uint32_t ring_s = smem_u32(smem + C::kRingOff);
-  const uint32_t bar_s = smem_u32(smem + C::kBarOff);
-  // barriers: full[s] at bar_s + 8s, empty[s] at bar_s + 8(C::kStages + s),
-  // the input conv's weights last
-  const uint32_t bar_w = bar_s + 16 * C::kStages;
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t in_s = smem_u32(smem + C::kInOff), zero_s = smem_u32(smem + C::kZeroOff);
+  const uint32_t ring_s = smem_u32(smem + C::kRingOff), bar_s = smem_u32(smem + C::kBarOff);
+  const auto in_full = [&](int s) { return bar_s + 8 * s; };
+  const auto in_empty = [&](int s) { return bar_s + 8 * (kInStages + s); };
+  const auto w_full = [&](int s) { return bar_s + 8 * (2 * kInStages + s); };
+  const auto w_empty = [&](int s) { return bar_s + 8 * (2 * kInStages + C::kWStages + s); };
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int wg = tid >> 7;
-  const int w4 = (tid >> 5) & 3;
-  const int g = lane >> 2, t = lane & 3;
-  const int tile_n = blockIdx.x % kLayerTiles;  // the two column tiles of a row tile are neighbours
-  const long row_base = long(blockIdx.x / kLayerTiles) * C::kValidRows;
+  const uint32_t rank = special_reg(0);
+  const int cluster = int(special_reg(1)), n_clusters = int(special_reg(2));
+  const int tiles = fp / N;
+  const int row_tiles = (n_boards + kTileBoards - 1) / kTileBoards;
+  const int n_units = (row_tiles + kCluster - 1) / kCluster * tiles;
+  const int in_slabs = kFirst ? 0 : fp / kSlabChannels;
+  const int ksteps0 = (9 * cin + 15) / 16;
+  // weight slabs of a unit, in the order the image holds them, a column tile
+  // after another (tower.layer_image); a stage takes one tap of a k-slab
+  // (the input conv: all its slabs)
+  const int unit_slabs = kFirst ? ksteps0 : in_slabs * 36;
+  const uint32_t stage_bytes = kFirst ? uint32_t(ksteps0) * C::kSlabBytes : C::kStageBytes;
   const long total_rows = long(n_boards) * kArea;
-  const int valid_rows =
-      int(total_rows - row_base < C::kValidRows ? total_rows - row_base : C::kValidRows);
-  const int ksteps0 = (9 * cin0 + 15) / 16;  // the input conv's slabs
-  // this column tile's image: its slabs one after another (tower.layer_image)
-  const unsigned char* w_bytes = reinterpret_cast<const unsigned char*>(w_img) +
-                                 size_t(tile_n) * (kFirst ? ksteps0 : 9 * C::kKS) * C::kSlabBytes;
+  const unsigned char* w_bytes = reinterpret_cast<const unsigned char*>(w_img);
 
-  // Thread 0 copies commit group `q` (slabs qG .. qG+G-1) into their stages,
-  // once every warp has released the group that used them before.
-  auto load_group = [&](int q) {
-#pragma unroll
-    for (int i = 0; i < G; ++i) {
-      const int slab = q * G + i;
-      const int s = slab % C::kStages;
-      const uint32_t use = uint32_t(slab / C::kStages);
-      if (use > 0) mbar_wait(bar_s + 8 * (C::kStages + s), (use - 1) & 1u);
-      mbar_expect_tx(bar_s + 8 * s, C::kSlabBytes);
-      bulk_copy(ring_s + s * C::kSlabBytes, w_bytes + size_t(slab) * C::kSlabBytes, C::kSlabBytes,
-                bar_s + 8 * s);
-    }
-  };
-
-  // --- barriers, first weight copies ---------------------------------------
   if (tid == 0) {
-    for (int s = 0; s < C::kStages; ++s) {
-      mbar_init(bar_s + 8 * s, 1);
-      mbar_init(bar_s + 8 * (C::kStages + s), kWarpgroups * 4);  // lane 0 of each warp
+    for (int s = 0; s < kInStages; ++s) {
+      mbar_init(in_full(s), 1);
+      mbar_init(in_empty(s), kLayerConsumers * 4);  // lane 0 of each consumer warp
     }
-    mbar_init(bar_w, 1);
+    for (int s = 0; s < C::kWStages; ++s) {
+      mbar_init(w_full(s), 1);
+      mbar_init(w_empty(s), kCluster * kLayerConsumers * 4);  // ... of every block of the cluster
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    if constexpr (kFirst) {
-      mbar_expect_tx(bar_w, uint32_t(ksteps0) * C::kSlabBytes);
-      bulk_copy(ring_s, w_bytes, uint32_t(ksteps0) * C::kSlabBytes, bar_w);
-    } else {
-      for (int q = 0; q < C::kGroups - 2; ++q) load_group(q);
-    }
   }
-
-  // --- the input rows, the zero row, the bias -------------------------------
-  if constexpr (kFirst) {
-    const float* x = static_cast<const float*>(in);
-    for (int k = tid; k < kMaxK0; k += kThreads) {  // as in tower_kernel
-      uint32_t e = 0;
-      if (k < 9 * cin0) {
-        const int tap = k / cin0, ci = k % cin0;
-        const int off = (tap / 3 - 1) * kWidth + (tap % 3 - 1);
-        e = (uint32_t(off) & 0xFFu) | (uint32_t(ci) << 8) | (0x10000u << tap);
-      }
-      ktab[k] = e;
-    }
-    for (int i = tid; i < C::kRows * 4; i += kThreads) {
-      const int row = i >> 2, ci = i & 3;
-      const float v = (ci < cin0 && row < valid_rows) ? x[(row_base + row) * cin0 + ci] : 0.f;
-      xin[i] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-    }
-  } else {
-    const uint4* src = static_cast<const uint4*>(in) + row_base * C::kChunks;
-    for (int i = tid; i < C::kRows * C::kChunks; i += kThreads) {
-      const int row = i / C::kChunks, c = i % C::kChunks;
-      const uint4 v = row < valid_rows ? src[i] : make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(X + row * C::kRB + ((uint32_t(c) ^ (uint32_t(row) & 7u)) << 4)) = v;
-    }
-    for (int i = tid; i < C::kRB / 4; i += kThreads)
-      reinterpret_cast<uint32_t*>(smem + C::kZeroOff)[i] = 0u;
-  }
-  for (int i = tid; i < N; i += kThreads) bias[i] = __bfloat162float(bias_g[tile_n * N + i]);
+  for (int i = tid; i < 32; i += kLayerThreads) reinterpret_cast<uint32_t*>(smem + C::kZeroOff)[i] = 0u;
   __syncthreads();
+  cluster_sync();  // every block's barriers are set before a multicast or a remote arrive
 
-  // rows this thread addresses for ldmatrix (lane & 15) and owns in the
-  // accumulator (g, g + 8) in its warpgroup's tile
-  const int tile_row = wg * 64 + w4 * 16;
-  const int row_l = tile_row + (lane & 15);
-  const int row_g = tile_row + g;
-
-  float acc[ND];
-  if constexpr (kFirst) {
-    // --- the input conv: A built in registers from the staged planes -------
-    mbar_wait(bar_w, 0);
-    const int r0 = row_g, r1 = r0 + 8;
-    const uint32_t m0 = board_tap_mask(r0), m1 = board_tap_mask(r1);
-    auto val = [&](int row, uint32_t m, int k) -> uint32_t {
-      const uint32_t e = ktab[k];
-      const int off = int(int8_t(e & 0xFFu));
-      const int ci = int((e >> 8) & 0xFFu);
-      return (m & (e >> 16)) ? uint32_t(xin[(row + off) * 4 + ci]) : 0u;
-    };
-    auto pair = [&](int row, uint32_t m, int k) -> uint32_t {
-      return val(row, m, k) | (val(row, m, k + 1) << 16);
-    };
-    uint32_t a[kMaxK0 / 16][4];
-#pragma unroll
-    for (int s = 0; s < kMaxK0 / 16; ++s) {
-      const int k = 16 * s + 2 * t;
-      a[s][0] = pair(r0, m0, k);
-      a[s][1] = pair(r1, m1, k);
-      a[s][2] = pair(r0, m0, k + 8);
-      a[s][3] = pair(r1, m1, k + 8);
+  if (tid >= kProducer) {
+    // --- the producer: one thread issues every copy in the order they are used
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == kProducer) {
+      constexpr uint16_t kMask = uint16_t((1u << kCluster) - 1u);
+      int in_n = 0, w_n = 0;  // k-slabs and weight stages issued so far
+      for (int unit = cluster; unit < n_units; unit += n_clusters) {
+        const int tile_n = unit % tiles;
+        const int row_tile = (unit / tiles) * kCluster + int(rank);
+        const unsigned char* w_tile = w_bytes + size_t(tile_n) * unit_slabs * C::kSlabBytes;
+        // Weight stage s is filled by block s % kCluster, multicast to all: it
+        // waits until every consumer warp of the cluster has released the
+        // stage; the others expect the bytes once the stage's previous use
+        // has landed here.
+        auto load_w = [&](const unsigned char* src) {
+          const int s = w_n % C::kWStages;
+          const uint32_t use = uint32_t(w_n / C::kWStages);
+          if (uint32_t(s % kCluster) == rank) {
+            if (use > 0) mbar_wait_or_trap(w_empty(s), (use - 1) & 1u);
+            mbar_expect_tx(w_full(s), stage_bytes);
+            bulk_copy_multicast(ring_s + s * C::kStageBytes, src, stage_bytes, w_full(s), kMask);
+          } else {
+            if (use > 0) mbar_wait_or_trap(w_full(s), (use - 1) & 1u);
+            mbar_expect_tx(w_full(s), stage_bytes);
+          }
+          ++w_n;
+        };
+        if constexpr (kFirst) {
+          load_w(w_tile);
+        } else {
+          for (int k = 0; k < in_slabs; ++k) {
+            const int s = in_n % kInStages;
+            const uint32_t use = uint32_t(in_n / kInStages);
+            if (use > 0) mbar_wait_or_trap(in_empty(s), (use - 1) & 1u);
+            mbar_expect_tx(in_full(s), kInSlabBytes);
+            tensor_copy_2d(in_s + s * kInSlabBytes, &in_map, k * kSlabChannels, row_tile * C::kValidRows,
+                           in_full(s));
+            ++in_n;
+            for (int tap = 0; tap < 9; ++tap) load_w(w_tile + size_t(k * 9 + tap) * C::kStageBytes);
+          }
+        }
+      }
     }
+    __syncwarp();
+    cluster_sync();  // no block leaves while another may still arrive on its barriers
+  } else {
+    // --- the consumers: two warpgroups of 64 rows, one m64nN accumulator each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int lane = tid & 31;
+    const int wg = tid >> 7;
+    const int w4 = (tid >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3;
+    // rows this thread addresses for ldmatrix (lane & 15) and owns in the
+    // accumulator (g, g + 8) in its warpgroup's tile
+    const int tile_row = wg * 64 + w4 * 16;
+    const int row_l = tile_row + (lane & 15);
+    const int row_g = tile_row + g;
+    const uint32_t mask_l = board_tap_mask(row_l);
+    int in_n = 0, w_n = 0;  // k-slabs and weight stages taken so far
+
+    // this warp's share of the products has read weight stage `at`
+    auto release_w = [&](int at) {
+      if (lane == 0) {
+        const uint32_t s = uint32_t(at) % C::kWStages;
+        mbar_arrive_cluster(w_empty(int(s)), s % kCluster);
+      }
+    };
+    auto wait_w = [&](int at) -> uint32_t {  // returns the stage's address
+      const int s = at % C::kWStages;
+      mbar_wait_or_trap(w_full(s), uint32_t(at / C::kWStages) & 1u);
+      return ring_s + s * C::kStageBytes;
+    };
+
+    float acc[ND];  // a unit's chain starts from zero (scale-d 0); set once for the compiler
 #pragma unroll
     for (int i = 0; i < ND; ++i) acc[i] = 0.f;
-    wgmma_fence();
-#pragma unroll
-    for (int s = 0; s < kMaxK0 / 16; ++s)
-      if (s < ksteps0) Mma<N>::add(acc, a[s], b_desc<N>(ring_s + s * C::kSlabBytes), s > 0 ? 1u : 0u);
-    wgmma_commit();
-    wgmma_wait<0>();
-    reg_fence(acc);
-  } else {
-    // --- a residual conv: 9 taps x kKS slabs, one chain from zero -----------
-    const uint32_t mask_l = board_tap_mask(row_l);
-    // Issue commit group j (G slabs of one tap) with its A fragments in `a`;
-    // then, with at most this group in flight, release the previous group's
-    // stages and let thread 0 copy the group kGroups - 2 ahead into the
-    // stages released one group earlier.
-    auto step = [&](int j, uint32_t (&a)[G][4]) {
-      const int tap = j / (C::kKS / G);
-      const int kk = (j % (C::kKS / G)) * G;
-      const int src_row = row_l + (tap / 3 - 1) * kWidth + (tap % 3 - 1);
-      const bool on = (mask_l >> tap) & 1u;
-      const uint32_t row_s = on ? x_s + uint32_t(src_row) * C::kRB : zero_s;
-      const uint32_t swz = on ? uint32_t(src_row) & 7u : 0u;
-#pragma unroll
-      for (int i = 0; i < G; ++i)
-        ldmatrix_x4(a[i], row_s + ((uint32_t(2 * (kk + i) + (lane >> 4)) ^ swz) << 4));
-      const int slab = j * G;
-      uint32_t w_s[G];
-#pragma unroll
-      for (int i = 0; i < G; ++i) {
-        const int s = (slab + i) % C::kStages;
-        mbar_wait(bar_s + 8 * s, uint32_t((slab + i) / C::kStages) & 1u);
-        w_s[i] = ring_s + s * C::kSlabBytes;
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int i = 0; i < G; ++i)
-        Mma<N>::add(acc, a[i], b_desc<N>(w_s[i]), (j > 0 || i > 0) ? 1u : 0u);
-      wgmma_commit();
-      if (j > 0) {
-        wgmma_wait<1>();
-        if (lane == 0) {
-#pragma unroll
-          for (int i = 0; i < G; ++i)
-            mbar_arrive(bar_s + 8 * (C::kStages + (slab - G + i) % C::kStages));
-        }
-      }
-      const int nxt = j + C::kGroups - 2;
-      if (tid == 0 && nxt < C::kLayerGroups) load_group(nxt);
-    };
+    for (int unit = cluster; unit < n_units; unit += n_clusters) {
+      const int tile_n = unit % tiles;
+      const long row_base = long((unit / tiles) * kCluster + int(rank)) * C::kValidRows;
+      const long left = total_rows - row_base;
+      const int valid_rows = int(left < 0 ? 0 : (left < C::kValidRows ? left : C::kValidRows));
 
-    uint32_t a0[G][4], a1[G][4];
+      if constexpr (kFirst) {
+        // --- the input conv: A built in registers from the float32 planes --
+        const int r0 = row_g, r1 = r0 + 8;
+        const uint32_t m0 = r0 < valid_rows ? board_tap_mask(r0) : 0u;
+        const uint32_t m1 = r1 < valid_rows ? board_tap_mask(r1) : 0u;
+        auto val = [&](int row, uint32_t m, int k) -> uint32_t {
+          if (k >= 9 * cin) return 0u;
+          const int tap = k / cin, ci = k - tap * cin;
+          if (!((m >> tap) & 1u)) return 0u;
+          const long src = row_base + row + (tap / 3 - 1) * kWidth + (tap % 3 - 1);
+          return uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(planes[src * cin + ci])));
+        };
+        auto pair = [&](int row, uint32_t m, int k) -> uint32_t {
+          return val(row, m, k) | (val(row, m, k + 1) << 16);
+        };
+        uint32_t a[kMaxK0 / 16][4];
+#pragma unroll
+        for (int s = 0; s < kMaxK0 / 16; ++s) {
+          const int k = 16 * s + 2 * t;
+          a[s][0] = pair(r0, m0, k);
+          a[s][1] = pair(r1, m1, k);
+          a[s][2] = pair(r0, m0, k + 8);
+          a[s][3] = pair(r1, m1, k + 8);
+        }
+        const uint32_t w_s = wait_w(w_n);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kMaxK0 / 16; ++s)
+          if (s < ksteps0) Mma<N>::add(acc, a[s], b_desc<N>(w_s + s * C::kSlabBytes), s > 0 ? 1u : 0u);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(acc);
+        release_w(w_n);
+        ++w_n;
+      } else {
+        // --- a residual conv: k-slab by k-slab, 9 taps x 4 steps each, one
+        // chain from zero in (k-slab, tap, channel) order ------------------
+        // Commit group j of a k-slab: the 4 products of tap j (one weight
+        // stage), their A fragments in set j % NB. Up to NB - 1 groups stay
+        // in flight; the stage of the group that has just completed is
+        // released.
+        constexpr int NB = C::kBuffers;
+        uint32_t a[NB][4][4];
+        int issued = 0;  // groups of this unit
+        auto step = [&](uint32_t (&frag)[4][4], uint32_t slab_s, int tap, bool first) {
+          // row src_row of the slab: 128 bytes, 16-byte chunk c at c ^ (src_row & 7);
+          // an off-board tap reads the zero row
+          const int src_row = row_l + (tap / 3 - 1) * kWidth + (tap % 3 - 1);
+          const uint32_t row_s = ((mask_l >> tap) & 1u) ? slab_s + uint32_t(src_row) * 128u : zero_s;
+          const uint32_t swz = uint32_t(src_row) & 7u;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            ldmatrix_x4(frag[kk], row_s + ((uint32_t(2 * kk + (lane >> 4)) ^ swz) << 4));
+          const uint32_t w_s = wait_w(w_n);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            Mma<N>::add(acc, frag[kk], b_desc<N>(w_s + kk * C::kSlabBytes), (first && kk == 0) ? 0u : 1u);
+          wgmma_commit();
+          // unconditional, so that the compiler sees every fragment set free
+          // before it is loaded again (a wait in a branch makes it
+          // serialise the products)
+          wgmma_wait<NB - 1>();
+          if (issued >= NB - 1) release_w(w_n - (NB - 1));
+          ++issued;
+          ++w_n;
+        };
 #pragma unroll 1
-    for (int j = 0; j < C::kLayerGroups; j += 2) {
-      step(j, a0);
-      step(j + 1, a1);
-    }
-    wgmma_wait<0>();
-    reg_fence(acc);
-  }
-
-  // --- bias, skip, LeakyReLU, round to bf16, store the valid rows -----------
-  // Accumulator layout: acc[4j + 2h + e] is row g + 8h, column 8j + 2t + e of
-  // the warp's 16 rows and the block's column tile.
-  const int n0 = tile_n * N;
+        for (int k = 0; k < in_slabs; ++k) {
+          const int s = in_n % kInStages;
+          mbar_wait_or_trap(in_full(s), uint32_t(in_n / kInStages) & 1u);
+          const uint32_t slab_s = in_s + s * kInSlabBytes;
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row_g + 8 * h;
-      if (row < valid_rows) {
-        const size_t at = size_t(row_base + row) * C::kFp + n0 + 8 * j + 2 * t;
-        float y0 = acc[4 * j + 2 * h] + b.x;
-        float y1 = acc[4 * j + 2 * h + 1] + b.y;
-        if (skip != nullptr) {
-          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(skip + at));
-          y0 += x.x;
-          y1 += x.y;
+          for (int tap = 0; tap < 9; ++tap) step(a[tap % NB], slab_s, tap, k == 0 && tap == 0);
+          // the k-slab's fragments are in registers: its stage is free
+          if (lane == 0) mbar_arrive(in_empty(s));
+          ++in_n;
         }
-        *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(lrelu(y0), lrelu(y1));
+      }
+
+      // --- bias, skip, LeakyReLU, round to bf16, store the valid rows -------
+      // Accumulator layout: acc[4j + 2h + e] is row g + 8h, column 8j + 2t + e
+      // of the warp's 16 rows and the unit's column tile. The skip (which may
+      // be `out`) is read whole before the last products end and before any
+      // store, so that its loads overlap instead of queueing behind stores.
+      const int n0 = tile_n * N;
+      __nv_bfloat162 sk[N / 4];  // the skip's pairs, index 2j + h
+      if (skip != nullptr) {
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = row_g + 8 * h;
+            if (row < valid_rows)
+              sk[2 * j + h] = *reinterpret_cast<const __nv_bfloat162*>(
+                  skip + size_t(row_base + row) * fp + n0 + 8 * j + 2 * t);
+          }
+      }
+      if constexpr (!kFirst) {
+        wgmma_wait<0>();
+        reg_fence(acc);
+        for (int i = C::kBuffers - 1; i > 0; --i) release_w(w_n - i);
+      }
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const float2 b =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias_g + n0 + 8 * j + 2 * t));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row_g + 8 * h;
+          if (row < valid_rows) {
+            const size_t at = size_t(row_base + row) * fp + n0 + 8 * j + 2 * t;
+            float y0 = acc[4 * j + 2 * h] + b.x;
+            float y1 = acc[4 * j + 2 * h + 1] + b.y;
+            if (skip != nullptr) {
+              const float2 x = __bfloat1622float2(sk[2 * j + h]);
+              y0 += x.x;
+              y1 += x.y;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(lrelu(y0), lrelu(y1));
+          }
+        }
       }
     }
+    cluster_sync();
   }
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (the
+// library links no libcuda); null if the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 template <int N, bool kFirst>
 int launch_layer(const void* in, const __nv_bfloat16* w_img, const __nv_bfloat16* bias,
-                 const __nv_bfloat16* skip, __nv_bfloat16* out, int n_boards, int cin0,
+                 const __nv_bfloat16* skip, __nv_bfloat16* out, int n_boards, int cin, int fp,
                  cudaStream_t stream) {
   static bool configured = false;
+  static int max_clusters = 0;  // clusters resident at once
+  const auto kernel = tower_layer<N, kFirst>;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        tower_layer<N, kFirst>, cudaFuncAttributeMaxDynamicSharedMemorySize, LayerCfg<N>::kSmem);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, LayerCfg<N>::kSmem);
     if (err != cudaSuccess) return int(err);
     configured = true;
   }
-  const int blocks = kLayerTiles * ((n_boards + kTileBoards - 1) / kTileBoards);
-  tower_layer<N, kFirst><<<blocks, kThreads, LayerCfg<N>::kSmem, stream>>>(
-      in, w_img, bias, skip, out, n_boards, cin0);
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (!kFirst) {
+    // the input [rows, fp] bf16 in boxes of [128 rows, 64 channels], 128-byte
+    // swizzled; rows past the end read as 0
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return int(cudaErrorNotSupported);
+    const cuuint64_t dims[2] = {cuuint64_t(fp), cuuint64_t(n_boards) * kArea};
+    const cuuint64_t strides[1] = {cuuint64_t(fp) * 2};
+    const cuuint32_t box[2] = {kSlabChannels, 128};
+    const cuuint32_t elem[2] = {1, 1};
+    if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(in), dims, strides, box, elem,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return int(cudaErrorInvalidValue);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(kCluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kLayerThreads);
+  cfg.dynamicSmemBytes = LayerCfg<N>::kSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters == 0) {
+    cfg.gridDim = dim3(unsigned(kCluster));
+    int n = 0;
+    cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (err != cudaSuccess) return int(err);
+    if (n < 1) return int(cudaErrorInvalidConfiguration);
+    max_clusters = n;
+  }
+  const int row_tiles = (n_boards + kTileBoards - 1) / kTileBoards;
+  const int units = (row_tiles + kCluster - 1) / kCluster * (fp / N);
+  const int clusters = units < max_clusters ? units : max_clusters;
+  cfg.gridDim = dim3(unsigned(clusters * kCluster));
+  const float* planes = kFirst ? static_cast<const float*>(in) : nullptr;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, map, planes, w_img, bias, skip, out, n_boards, cin, fp);
+  if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
+}
+
+// the column tile of a packed layer width: the widest of 256, 224, 192, 160
+// that divides it (tower.layer_tile), 0 for a width the layer kernel does not take
+int layer_tile(int fp) {
+  if (fp <= 256 || fp % kSlabChannels != 0) return 0;
+  const int widths[4] = {256, 224, 192, 160};
+  for (int n : widths)
+    if (fp % n == 0) return n;
+  return 0;
 }
 
 }  // namespace
@@ -1431,29 +1664,32 @@ int c4_tower_forward(const void* x, const void* conv1_img, const void* conv1_b,
 }
 
 // One conv of a tower wider than 256 filters (the layer kernel), at a packed
-// width `filters` of 320, 384, 448 or 512. first != 0: the input conv, `in`
-// float32 [n_boards*42, cin] with cin <= 4, `w_img` conv1's image
-// [2, 16*ceil(9*cin/16) * filters/2] and `skip` null. Otherwise a residual
-// conv, `in` bf16 [n_boards*42, filters], cin == filters, `w_img` the layer's
-// image [2, 9*filters * filters/2] (tower.py::layer_image: per column tile of
-// filters/2, its 16-deep slabs in (tap, channel) order, each as smem_image
-// lays it out) and `skip` null or bf16 [n_boards*42, filters], which may be
-// `out`. bias: [filters] bf16; out: bf16 [n_boards*42, filters]. Returns a
-// cudaError_t.
-int c4_tower_layer(const void* in, const void* w_img, const void* bias, const void* skip,
-                   void* out, int n_boards, int cin, int filters, int first, void* stream) {
+// width `filters` (tower.kernel_width: a multiple of 64 above 256 that one of
+// 256, 224, 192, 160 divides; the column tile N is the widest that does, and
+// T = filters / N). first != 0: the input conv, `in` float32 [n_boards*42,
+// cin] with cin <= 4, `w_img` conv1's image [T, 16*ceil(9*cin/16) * N] and
+// `skip` null. Otherwise a residual conv, `in` bf16 [n_boards*42, filters],
+// cin == filters, `w_img` the layer's image [T, 9*filters * N]
+// (tower.layer_image: per column tile, its 16-deep slabs in (k-slab of 64
+// channels, tap, channel) order, each as smem_image lays it out) and `skip`
+// null or bf16 [n_boards*42, filters], which may be `out`. bias: [filters]
+// bf16; out: bf16 [n_boards*42, filters]. Returns a cudaError_t
+// (cudaErrorInvalidValue for a combination it does not take).
+int c4_tower_layer(const void* in, const void* w_img, const void* bias, const void* skip, void* out,
+                   int n_boards, int cin, int filters, int first, void* stream) {
   if (n_boards <= 0) return int(cudaSuccess);
-  if (first ? (cin < 1 || cin > kMaxCin0 || skip != nullptr) : cin != filters)
+  const int n = layer_tile(filters);
+  if (n == 0 || (first ? (cin < 1 || cin > kMaxCin0 || skip != nullptr) : cin != filters))
     return int(cudaErrorInvalidValue);
   const auto* w = static_cast<const __nv_bfloat16*>(w_img);
   const auto* b = static_cast<const __nv_bfloat16*>(bias);
   const auto* k = static_cast<const __nv_bfloat16*>(skip);
   auto* o = static_cast<__nv_bfloat16*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-#define C4_LAYER(N_)                                                           \
-  if (filters == kLayerTiles * N_)                                             \
-    return first ? launch_layer<N_, true>(in, w, b, k, o, n_boards, cin, s)    \
-                 : launch_layer<N_, false>(in, w, b, k, o, n_boards, cin, s);
+#define C4_LAYER(N_)                                                                        \
+  if (n == N_)                                                                              \
+    return first ? launch_layer<N_, true>(in, w, b, k, o, n_boards, cin, filters, s) \
+                 : launch_layer<N_, false>(in, w, b, k, o, n_boards, cin, filters, s);
   C4_LAYER(160)
   C4_LAYER(192)
   C4_LAYER(224)

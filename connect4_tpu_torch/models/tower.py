@@ -24,21 +24,25 @@ shared-memory images the kernel's matrix descriptors read (``conv1_img``,
 
 Widths. The kernel is instantiated at ``KERNEL_FILTERS``; a net of any
 other width up to 256 runs at the next instantiated one (``kernel_width``).
-A wider net, up to ``MAX_FILTERS``, runs at the next multiple of
-``LAYER_STEP`` through the layer kernel of ``csrc/tower.cu``, one conv a
-launch (13 launches at six residual blocks), with the activations in device
-memory between layers; ``run_tower.layer_launches`` counts its launches.
+A wider net, of any width, runs through the layer kernel of
+``csrc/tower.cu``, one conv a launch (13 launches at six residual blocks),
+with the activations in device memory between layers, at the next multiple
+of ``LAYER_STEP`` that one of ``LAYER_TILE_WIDTHS`` divides (that column
+tile, ``layer_tile``); ``run_tower.layer_launches`` counts its launches.
 ``pack_weights`` pads the conv weights and biases with zeros, so the padded
 channels stay exactly 0 through every layer and add nothing to the real
 ones, and ``heads`` reads the real channels only. The plain version
 computes on the same padded tensors, so the CPU and the card compute one
-function. A net wider than ``MAX_FILTERS`` raises.
+function.
 
 Numerics (both versions, as in the Pallas kernel): inputs rounded to bf16,
 bf16 weights, float32 accumulation, float32 bias add, LeakyReLU, a round
 to bf16 at every layer boundary, the residual add in float32. Both sum a
-conv in the same order: ``CHAIN`` says how many products chain inside the
-tensor core before an ordinary float32 add (as shipped, the whole layer).
+conv in the same order: (tap, channel) at the fused widths, and at the
+layer kernel's (k-slab of ``LAYER_STEP`` channels, tap, channel), the
+order ``layer_k_order`` gives. ``CHAIN`` says how many products chain
+inside the tensor core before an ordinary float32 add (as shipped, the
+whole layer).
 Inside a chain the tensor core does not round to nearest, so ``tower_plain``
 comes in two forms. ``tensor_core=False`` (the default, and what
 ``run_tower`` computes on the CPU) is the float32 matrix product rounded to
@@ -70,13 +74,13 @@ KERNEL_FILTERS = (16, 32, 64, 128, 256)  # widths the fused kernel is instantiat
 # 256 is the widest tower a block can hold (wgmma's N is at most 256; the two
 # [128 rows, F] bf16 activation tiles, 128 KB at F=256, and the weight ring
 # fill the 227 KB of shared memory a block may use). Above it the layer
-# kernel takes one conv a launch, at the width padded to a multiple of
-# LAYER_STEP, in LAYER_TILES column tiles of Fp / LAYER_TILES (160, 192, 224
-# or 256, wgmma's N). Its limit, MAX_FILTERS: a block stages its whole
-# [128, Fp] bf16 input tile (128 KB at 512) beside a 64 KB weight ring.
+# kernel takes one conv a launch. It stages its input in k-slabs of
+# LAYER_STEP channels, so the packed width Fp is a multiple of LAYER_STEP,
+# and cuts the output channels into Fp / N column tiles of N, the widest of
+# LAYER_TILE_WIDTHS that divides Fp (wgmma's N is at most 256). Its shared
+# memory does not grow with Fp: no width is too wide.
 LAYER_STEP = 64
-LAYER_TILES = 2
-MAX_FILTERS = 512
+LAYER_TILE_WIDTHS = (256, 224, 192, 160)
 MAX_CHANNELS = 4
 # How many terms of a residual conv's 9*Cin-deep sum form one product before
 # a float32 add: "step" 16 (one tensor-core step), "tap" Cin (one tap),
@@ -94,19 +98,33 @@ PEAK_BYTES = 3.35e12
 _BF16 = torch.bfloat16
 
 
+def layer_tile(fp: int) -> int:
+    """The column tile N the layer kernel cuts a packed width ``fp`` into:
+    the widest of ``LAYER_TILE_WIDTHS`` that divides it; 0 where ``fp`` is
+    not a width the layer kernel takes (at most 256, or not a multiple of
+    ``LAYER_STEP``, or none divides it)."""
+    if not is_layer_width(fp) or fp % LAYER_STEP:
+        return 0
+    return next((n for n in LAYER_TILE_WIDTHS if fp % n == 0), 0)
+
+
 def kernel_width(filters: int) -> int:
     """The width the tower runs at for a net of ``filters``: the narrowest
     of ``KERNEL_FILTERS`` that holds it, or above 256 the next multiple of
-    ``LAYER_STEP`` (the layer kernel). Raises above ``MAX_FILTERS``."""
-    if not 1 <= filters <= MAX_FILTERS:
-        raise ValueError(
-            f"tower: filters {filters} is outside 1..{MAX_FILTERS}; the layer kernel stages a "
-            f"block's [128, F] bf16 input rows ({128 * 2 * MAX_FILTERS // 1024} KB at F={MAX_FILTERS}) "
-            f"beside its 64 KB weight ring in the 227 KB of shared memory a block may use"
-        )
+    ``LAYER_STEP`` that the layer kernel takes (``layer_tile``): from 257 to
+    512 that is the next multiple of 64 (320, 384, 448 or 512, two column
+    tiles); above, 576, 640, 768, 896, 960, 1024, ... (704 and 832, multiples
+    of 64 with no column tile, go on to 768 and 896). The worst wasted share
+    of the residual operations, 1 - (F/Fp)^2, is 35.5% at F=257 and above
+    512 30.3% at F=641 (packed to 768)."""
+    if filters < 1:
+        raise ValueError(f"tower: filters {filters} must be at least 1")
     if filters <= KERNEL_FILTERS[-1]:
         return next(w for w in KERNEL_FILTERS if w >= filters)
-    return -(-filters // LAYER_STEP) * LAYER_STEP
+    fp = -(-filters // LAYER_STEP) * LAYER_STEP
+    while not layer_tile(fp):
+        fp += LAYER_STEP
+    return fp
 
 
 def is_layer_width(fp: int) -> bool:
@@ -170,8 +188,8 @@ def pack_weights(config: NetConfig, folded: Dict[str, torch.Tensor]) -> Dict[str
     depth0 = conv1_w.shape[0]
     conv1_pad = F.pad(conv1_w, (0, 0, 0, -depth0 % 16))  # depth up to a multiple of 16
     if is_layer_width(fp):
-        conv1_img = layer_image(conv1_pad)  # [LAYER_TILES, 16*ceil(9*channels/16) * fp/LAYER_TILES]
-        res_img = layer_image(res_w)  # [2n, LAYER_TILES, 9*fp * fp/LAYER_TILES]
+        conv1_img = layer_image(conv1_pad)  # [T, 16*ceil(9*channels/16) * N], T = fp / N column tiles
+        res_img = layer_image(res_w)  # [2n, T, 9*fp * N], slabs in layer_k_order
     else:
         conv1_img = smem_image(conv1_pad)  # [16*ceil(9*channels/16) * fp]
         res_img = smem_image(res_w.unflatten(1, (9, fp)))  # [2n, 9, fp*fp], one tap each
@@ -214,27 +232,41 @@ def smem_image_inverse(img: torch.Tensor, n: int) -> torch.Tensor:
     return v.permute(*range(v.dim() - 4), -4, -1, -3, -2).flatten(-4, -3).flatten(-2).contiguous()
 
 
+def layer_k_order(fp: int) -> torch.Tensor:
+    """The im2col rows of a residual conv at a layer width ``fp`` (rows in
+    (tap, channel) order) in the order the layer kernel multiplies them:
+    k-slab of ``LAYER_STEP`` input channels, then tap, then channel."""
+    return torch.arange(9 * fp).reshape(9, fp // LAYER_STEP, LAYER_STEP).transpose(0, 1).flatten()
+
+
 def layer_image(w: torch.Tensor) -> torch.Tensor:
-    """``[..., K, Fp]`` -> ``[..., LAYER_TILES, K*N]``, the image the layer
-    kernel streams: the columns cut into ``LAYER_TILES`` tiles of ``N = Fp /
-    LAYER_TILES``, each tile's ``[K, N]`` as ``smem_image`` lays it out, so
-    that its 16-deep slabs (``16*N`` elements each) follow one another in
-    the order the kernel multiplies them: tap, then input channel."""
-    fp = w.shape[-1]
-    return smem_image(w.unflatten(-1, (LAYER_TILES, fp // LAYER_TILES)).movedim(-2, -3))
+    """``[..., K, Fp]`` -> ``[..., T, K*N]``, the image the layer kernel
+    streams: the columns cut into ``T = Fp / N`` tiles of ``N =
+    layer_tile(Fp)``, each tile's ``[K, N]`` as ``smem_image`` lays it out,
+    so that its 16-deep slabs (``16*N`` elements each) follow one another in
+    the order the kernel multiplies them: for a residual conv (``K =
+    9*Fp``) in ``layer_k_order``, for the input conv as they are."""
+    k, fp = w.shape[-2:]
+    n = layer_tile(fp)
+    if k == 9 * fp:
+        w = w[..., layer_k_order(fp).to(w.device), :]
+    return smem_image(w.unflatten(-1, (fp // n, n)).movedim(-2, -3))
 
 
 def layer_image_inverse(img: torch.Tensor, fp: int) -> torch.Tensor:
-    """``layer_image`` undone: ``[..., LAYER_TILES, K*N]`` -> ``[..., K, fp]``."""
-    tiles = smem_image_inverse(img, fp // LAYER_TILES)  # [..., T, K, N]
-    return tiles.movedim(-3, -2).flatten(-2).contiguous()
+    """``layer_image`` undone: ``[..., T, K*N]`` -> ``[..., K, fp]``."""
+    tiles = smem_image_inverse(img, layer_tile(fp))  # [..., T, K, N]
+    w = tiles.movedim(-3, -2).flatten(-2)
+    if w.shape[-2] == 9 * fp:
+        w = w[..., torch.argsort(layer_k_order(fp)).to(w.device), :]
+    return w.contiguous()
 
 
 def tile_plan(n_boards: int) -> Tuple[int, int]:
     """``(boards per block, blocks)`` as the fused kernel's launcher takes
     them: 3 boards, two 64-row tiles, one per warpgroup, at every batch, so
-    that small batches spread over the card. The layer kernel launches
-    ``LAYER_TILES`` blocks (column tiles) for each of these."""
+    that small batches spread over the card. The layer kernel takes the
+    same row tiles, each once for every column tile."""
     return TILE_BOARDS, -(-n_boards // TILE_BOARDS)
 
 
@@ -296,17 +328,22 @@ def _conv3x3_plain(
     ``[B, 6, 7, F]``: im2col over the zero-padded board, bf16 values
     multiplied and summed in the CUDA kernel's order.
 
-    A residual conv (Cin a multiple of 16) is cut into chains of ``chain``
+    The im2col depth is in (dr, dc, cin) order, as ``w``'s rows; a
+    residual conv at a layer width (Cin above 256) takes it in the layer
+    kernel's order instead (``layer_k_order``: k-slab, tap, channel). A
+    residual conv (Cin a multiple of 16) is cut into chains of ``chain``
     terms (``"step"`` 16, ``"tap"`` Cin, ``"layer"`` all of them); the
     chains' sums are added in turn with ordinary float32 adds, as the kernel
     adds them. The input conv is one chain. A chain is one float32 matrix
     product rounded to nearest, or with ``tensor_core`` the tensor core's
     16-term steps emulated one after the other (``_tensor_core_step``)."""
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
-    patches = torch.cat(
-        [xp[:, dr:dr + HEIGHT, dc:dc + WIDTH, :] for dr in range(3) for dc in range(3)],
-        dim=-1,
-    )  # [B, 6, 7, 9*Cin], (dr, dc, cin) order
+    taps = [xp[:, dr:dr + HEIGHT, dc:dc + WIDTH, :] for dr in range(3) for dc in range(3)]
+    if is_layer_width(x.shape[-1]):
+        cin = x.shape[-1]
+        taps = [t[..., s:s + LAYER_STEP] for s in range(0, cin, LAYER_STEP) for t in taps]
+        w = w[layer_k_order(cin).to(w.device)]
+    patches = torch.cat(taps, dim=-1)  # [B, 6, 7, 9*Cin]
     board_shape = patches.shape[:-1]
     patches = patches.flatten(0, -2)
     depth = patches.shape[-1]
@@ -372,20 +409,19 @@ def _tower_cuda(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) 
     f = packed["conv1_w"].shape[1]
     n_layers = packed["res_img"].shape[0]
     layered = is_layer_width(f)
-    if (rows % AREA or not 1 <= cin <= MAX_CHANNELS
-            or not (f in KERNEL_FILTERS or (layered and f <= MAX_FILTERS and f % LAYER_STEP == 0))):
+    if rows % AREA or not 1 <= cin <= MAX_CHANNELS or not (f in KERNEL_FILTERS or layer_tile(f)):
         raise ValueError(
             f"tower kernel takes [B*42, C<= {MAX_CHANNELS}] rows and packed widths F in "
-            f"{KERNEL_FILTERS} or multiples of {LAYER_STEP} up to {MAX_FILTERS} (pack_weights "
-            f"pads a net of up to {MAX_FILTERS} filters to one of them); got rows {rows}, C {cin}, F {f}"
+            f"{KERNEL_FILTERS} or, above 256, multiples of {LAYER_STEP} that one of {LAYER_TILE_WIDTHS} "
+            f"divides (pack_weights pads a net to one of them); got rows {rows}, C {cin}, F {f}"
         )
     if layered and chain not in (None, CHAIN):
         raise ValueError(f"the layer kernel (F {f}) sums a layer as one chain; got chain {chain}")
     dev = x2d.device
     depth0 = -(-9 * cin // 16) * 16
     if layered:
-        n = f // LAYER_TILES
-        img_shapes = (LAYER_TILES, depth0 * n), (n_layers, LAYER_TILES, 9 * f * n)
+        n = layer_tile(f)
+        img_shapes = (f // n, depth0 * n), (n_layers, f // n, 9 * f * n)
     else:
         img_shapes = (depth0 * f,), (n_layers, 9, f * f)
     _check(x2d, "x", torch.float32, (rows, cin), dev)

@@ -128,6 +128,34 @@ def test_layer_kernel_equals_its_emulation():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("filters", [520, 1024])
+def test_layer_kernel_equals_its_emulation_above_512(filters):
+    """Above 512 filters (F=520 runs at 576 in three column tiles of 192,
+    F=1024 at 1024 in four of 256) the layer kernel equals the plain version
+    with the tensor core's accumulate emulated, in its (k-slab, tap,
+    channel) order, in every element, on fresh nets of one residual block,
+    and the padded channels are 0. The last row tile holds 1 board at B=64
+    and 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    config = NetConfig(filters=filters, n_fc_layers=1, n_residuals=1, compute_dtype="bfloat16")
+    net = init_net(config, torch.Generator().manual_seed(filters), device="cuda")
+    packed = tower.pack_weights(config, fold_bn_params(net))
+    for b in (64, 1):
+        x2d = _positions(b, g)
+        with torch.no_grad():
+            layers = tower.run_tower.layer_launches
+            tk = tower.run_tower(packed, x2d)
+            assert tower.run_tower.layer_launches == layers + 3  # the input conv and 2
+            tp = tower.tower_plain(packed, x2d, tensor_core=True)
+        torch.cuda.synchronize()
+        assert tk.shape == (b * 42, tower.kernel_width(filters))
+        assert int((tk != tp).sum()) == 0, (filters, b)
+        assert not tk[:, filters:].any(), (filters, b)
+
+
+@pytest.mark.gpu
 def test_train_step_on_card_matches_cpu():
     """Three SGD steps (uint8 NCHW batches of 256 legal positions, made-up
     targets) on the card against the same steps on the CPU from the same

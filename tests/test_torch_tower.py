@@ -8,13 +8,16 @@ CUDA kernel itself is held against it on the card by ``chip_smoke.py`` and
 by ``tests/test_torch_gpu.py``.
 
 Widths: the fused kernel is instantiated at ``tower.KERNEL_FILTERS`` and
-``pack_weights`` pads any other width up to 256 with zeros; above 256, up to
-``tower.MAX_FILTERS``, the layer kernel runs at the next multiple of
-``tower.LAYER_STEP``. The width tests hold the padded packing, both forms
-of the plain version and the evaluator against the JAX package at F = 4,
-24, 128, 256, 264 and 512 (one residual block, fc 1, a few boards), on the
-same weights: Flax variables made from a JAX key with numpy-drawn
-BatchNorm statistics, carried over with ``from_flax``."""
+``pack_weights`` pads any other width up to 256 with zeros; above 256, at
+any width, the layer kernel runs at the next multiple of
+``tower.LAYER_STEP`` that a column tile divides (``tower.kernel_width``).
+The width tests hold the padded packing, both forms of the plain version
+and the evaluator against the JAX package at F = 4, 24, 128, 256, 264 and
+512, and at F = 520 (packed to 576, three column tiles) the evaluator and
+the emulated plain version in the layer kernel's summation order (one
+residual block, fc 1, a few boards), on the same weights: Flax variables
+made from a JAX key with numpy-drawn BatchNorm statistics, carried over
+with ``from_flax``."""
 
 import dataclasses
 import os
@@ -367,12 +370,10 @@ def _torch_folded(jfolded, n_residuals, n_fc):
     return out
 
 
-@pytest.fixture(scope="module", params=WIDTHS, ids=lambda f: f"F{f}")
-def wide_net(request):
-    """One net of ``filters`` in both packages: Flax variables from a JAX
+def _both_nets(f):
+    """One net of ``f`` filters in both packages: Flax variables from a JAX
     key, with BatchNorm scales, biases and running statistics drawn with
     numpy so that the folds are not the identity."""
-    f = request.param
     jconfig = JNetConfig(filters=f, **WIDE)
     net, variables = jinit_net(jconfig, jax.random.key(f))
     rng = np.random.default_rng(f)
@@ -395,6 +396,18 @@ def wide_net(request):
     boards = _boards(4, f)
     x = np.stack([np.moveaxis(b.to_planes().astype(np.float32), 0, -1) for b in boards])
     return f, jconfig, net, params, stats, jfolded, tnet, boards, x
+
+
+@pytest.fixture(scope="module", params=WIDTHS, ids=lambda f: f"F{f}")
+def wide_net(request):
+    return _both_nets(request.param)
+
+
+@pytest.fixture(scope="module")
+def net_above_512():
+    """A net of 520 filters, which the layer kernel runs at 576 in three
+    column tiles of 192."""
+    return _both_nets(520)
 
 
 def test_padded_packing_equals_jax_bit_for_bit(wide_net):
@@ -468,47 +481,153 @@ def test_evaluator_at_every_width_matches_jax_evaluator(wide_net):
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=2e-2)
 
 
-def test_width_above_the_limit_raises():
-    """A net wider than the layer kernel takes (``tower.MAX_FILTERS``, 512:
-    its staged input tile and weight ring in a block's shared memory)
-    raises, naming the limit; it is not run some other way. Every width up
-    to the limit packs: at most 256 at one of the fused kernel's widths,
-    above at the next multiple of ``tower.LAYER_STEP``."""
-    assert tower.MAX_FILTERS == 512
-    assert [tower.kernel_width(f) for f in (256, 257, 264, 320, 321, 448, 511, 512)] == [
-        256, 320, 320, 320, 384, 448, 512, 512]
-    config = NetConfig(filters=tower.MAX_FILTERS + 8, **WIDE)
-    with pytest.raises(ValueError, match=f"1..{tower.MAX_FILTERS}"):
-        tower.kernel_width(config.filters)
-    net = init_net(config, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(ValueError, match="128 KB at F=512"):
-        make_net_evaluator(net)
+def test_width_above_512_matches_jax(net_above_512):
+    """A bf16 net wider than 512 filters (the layer kernel's limit until it
+    staged its input in k-slabs) builds, packs and evaluates: the port's
+    ``make_net_evaluator`` on the CPU against the JAX package's on the same
+    Flax weights, value and prior within the 2e-2 of
+    ``test_evaluator_at_every_width_matches_jax_evaluator``; the packing is
+    at 576 filters in three column tiles of 192, its padded channels 0."""
+    f, _, net, params, stats, _, tnet, boards, _ = net_above_512
+    assert f == 520 and tower.kernel_width(f) == 576 and tower.layer_tile(576) == 192
+    packed = tower.pack_weights(tnet.config, fold_bn_params(tnet))
+    assert packed["res_img"].shape == (2, 3, 9 * 576 * 192) and packed["conv1_img"].shape == (3, 32 * 192)
+    assert not packed["res_w"][:, :, f:].any() and not packed["res_b"][:, f:].any()
+    jv, jp = jax.jit(jmake_net_evaluator(net, params, stats))(jstack_boards(boards))
+    tv, tp = make_net_evaluator(tnet)(stack_boards(boards, device="cpu"))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=0, atol=2e-2)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=2e-2)
 
 
-@pytest.mark.parametrize("filters", [264, 320, 448, 512])
+def test_plain_tower_in_slab_order_matches_pallas(net_above_512):
+    """The emulated plain version, which sums a residual conv in the layer
+    kernel's order (k-slab of 64 channels, tap, channel), against the Pallas
+    tower in interpret mode at F=520: value and prior within the 2e-2 that
+    ``test_plain_tower_at_every_width_matches_pallas`` holds the layer
+    widths to, the padded channels exactly 0."""
+    f, jconfig, _, _, _, jfolded, tnet, _, x = net_above_512
+    jv, jp = (np.asarray(a) for a in make_pallas_forward(
+        jconfig, jpack_weights(jconfig, jfolded), interpret=True)(x))
+    packed = tower.pack_weights(tnet.config, fold_bn_params(tnet))
+    with torch.no_grad():
+        t = tower.tower_plain(packed, torch.from_numpy(x).reshape(-1, 3), tower.CHAIN, True)
+        tv, tp = tower.heads(packed, t)
+    assert t.shape == (len(x) * 42, 576) and not t[:, f:].any()
+    dv, dp = np.abs(tv.numpy() - jv).max(), np.abs(tp.numpy() - jp).max()
+    assert dv <= 2e-2 and dp <= 2e-2, (dv, dp)
+
+
+def test_layer_conv_sums_in_the_kernels_order():
+    """At a layer width a residual conv of the emulated plain version is
+    one chain of 16-deep tensor-core steps in (k-slab of 64 channels, tap,
+    channel) order, the order the layer kernel multiplies its weight slabs
+    in: equal bit for bit to the steps taken by hand in that order on the
+    (tap, channel) im2col matrix, and not to the (tap, channel) order."""
+    fp = 320
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.randn((2, 6, 7, fp), generator=gen) * 0.5).to(torch.bfloat16)
+    w = (torch.randn((9 * fp, fp), generator=gen) * 0.05).to(torch.bfloat16)
+    b = (torch.randn((fp,), generator=gen) * 0.1).to(torch.bfloat16)
+    got = tower._conv3x3_plain(x, w, b, "layer", tensor_core=True)
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    patches = torch.cat([xp[:, dr:dr + 6, dc:dc + 7, :] for dr in range(3) for dc in range(3)], -1).flatten(0, 2)
+    wf = w.float()
+
+    def chain(starts):
+        acc = None
+        for k in starts:
+            acc = tower._tensor_core_step(patches[:, k:k + 16], wf[k:k + 16], acc)
+        return (acc + b.float()).unflatten(0, (2, 6, 7))
+
+    slab_order = [tap * fp + s + kk for s in range(0, fp, 64) for tap in range(9) for kk in range(0, 64, 16)]
+    assert torch.equal(got, chain(slab_order))
+    assert not torch.equal(got, chain(range(0, 9 * fp, 16)))
+
+
+@pytest.mark.parametrize("filters, packed", [
+    (1, 16), (17, 32), (100, 128), (256, 256), (257, 320), (264, 320), (320, 320), (321, 384), (449, 512),
+    (512, 512), (513, 576), (520, 576), (577, 640), (641, 768), (700, 768), (705, 768), (769, 896), (833, 896),
+    (1000, 1024), (1024, 1024), (1025, 1152), (2000, 2048),
+])
+def test_kernel_width_pads_as_documented(filters, packed):
+    """``kernel_width`` gives the widths its docstring names: a fused
+    instantiation up to 256; above, the next multiple of 64 that a column
+    tile of 256, 224, 192 or 160 divides, in at least two tiles. No width
+    raises for being too wide."""
+    fp = tower.kernel_width(filters)
+    assert fp == packed
+    if fp > 256:
+        n = tower.layer_tile(fp)
+        assert fp % tower.LAYER_STEP == 0 and n in tower.LAYER_TILE_WIDTHS and fp // n >= 2
+
+
+def test_layer_widths_pad_no_more_than_before():
+    """From 257 to 512 a width pads to the next multiple of 64, as it did
+    before the layer kernel took wider nets; the worst wasted share of the
+    residual operations, 1 - (F/Fp)^2, is 35.5% at F=257 and, above 512 (up
+    to 4096), 30.3% at F=641, the shares the docstring of ``kernel_width``
+    records."""
+    assert all(tower.kernel_width(f) == -(-f // 64) * 64 for f in range(257, 513))
+    waste = {f: 1 - (f / tower.kernel_width(f)) ** 2 for f in range(257, 4097)}
+    assert max(waste, key=waste.get) == 257 and round(waste[257], 3) == 0.355
+    above = {f: w for f, w in waste.items() if f > 512}
+    assert max(above, key=above.get) == 641 and round(above[641], 3) == 0.303
+
+
+def _layer_packed(filters):
+    config = NetConfig(filters=filters, n_fc_layers=1, n_residuals=1, compute_dtype="bfloat16")
+    return tower.pack_weights(config, fold_bn_params(
+        init_net(config, torch.Generator().manual_seed(filters), device="cpu")))
+
+
+@pytest.mark.parametrize("case", ["rows", "width", "layout", "chain"])
+def test_cuda_wrapper_refuses_what_the_layer_kernel_does_not_take(case):
+    """The CUDA wrapper checks what it hands the layer kernel before it
+    builds or launches anything, so these raise here without a card: rows
+    that are not whole boards, a packed width the layer kernel does not take
+    (704, a multiple of 64 that no column tile divides), a weight image in
+    the fused kernel's layout, a chain other than the whole layer."""
+    packed = _layer_packed(264)
+    x2d = torch.zeros((2 * 42, 3))
+    chain = None
+    if case == "rows":
+        x2d = torch.zeros((2 * 42 + 1, 3))
+    elif case == "width":
+        packed = dict(packed, conv1_w=torch.zeros((27, 704), dtype=torch.bfloat16))
+    elif case == "layout":
+        packed = dict(packed, res_img=tower.smem_image(packed["res_w"].unflatten(1, (9, 320))))
+    else:
+        chain = "tap"
+    with pytest.raises(ValueError):
+        tower._tower_cuda(packed, x2d, chain)
+
+
+@pytest.mark.parametrize("filters", [264, 320, 448, 512, 520, 1024])
 def test_layer_weight_image_unpacks_bit_for_bit(filters):
     """Above 256 filters ``pack_weights`` lays the weights out for the layer
-    kernel: at the next multiple of 64, in two column tiles, each tile's
-    16-deep slabs one after another in (tap, channel) order, each slab as
-    the wgmma descriptor reads it. The images invert to the padded im2col
-    matrices bit for bit, and an element sits where the kernel reads it."""
-    config = NetConfig(filters=filters, n_fc_layers=1, n_residuals=1, compute_dtype="bfloat16")
-    packed = tower.pack_weights(config, fold_bn_params(
-        init_net(config, torch.Generator().manual_seed(filters), device="cpu")))
+    kernel: at ``kernel_width``, in column tiles of ``layer_tile``, each
+    tile's 16-deep slabs one after another in (k-slab of 64 channels, tap,
+    channel) order, each slab as the wgmma descriptor reads it. The images
+    invert to the padded im2col matrices bit for bit, and an element sits
+    where the kernel reads it."""
+    packed = _layer_packed(filters)
     fp = tower.kernel_width(filters)
-    n = fp // tower.LAYER_TILES
+    n = tower.layer_tile(fp)
     assert fp % tower.LAYER_STEP == 0 and tower.is_layer_width(fp) and n <= 256
     res_w, img = packed["res_w"], packed["res_img"]
-    assert img.shape == (2, tower.LAYER_TILES, 9 * fp * n) and img.dtype == torch.bfloat16
+    assert img.shape == (2, fp // n, 9 * fp * n) and img.dtype == torch.bfloat16
     assert torch.equal(tower.layer_image_inverse(img, fp), res_w)
-    for layer, k, col in [(0, 0, 0), (1, 9 * fp - 1, filters - 1), (0, 4 * fp + 17, n + 5), (1, fp + 3, n - 1)]:
+    for layer, k, col in [(0, 0, 0), (1, 9 * fp - 1, filters - 1), (0, 4 * fp + 17, n + 5), (1, fp + 3, n - 1),
+                          (0, 2 * fp + 64 + 21, fp - 1), (1, 8 * fp + fp - 65, 2 * n + 7 if fp // n > 2 else 9)]:
         tile, c = divmod(col, n)
-        slab, kk = divmod(k, 16)  # 16-deep slab in (tap, channel) order, row in it
+        tap, ch = divmod(k, fp)  # im2col row: tap, then input channel
+        kslab, kin = divmod(ch, 64)
+        slab, kk = (kslab * 9 + tap) * 4 + kin // 16, kin % 16  # 16-deep slab in the kernel's order, row in it
         at = slab * 16 * n + ((kk // 8 * n // 8 + c // 8) * 8 + c % 8) * 8 + kk % 8
         assert img[layer, tile, at] == res_w[layer, k, col]
     assert not res_w.unflatten(1, (9, fp))[:, :, filters:].any() and not res_w[:, :, filters:].any()
     conv1 = tower.layer_image_inverse(packed["conv1_img"], fp)
-    assert packed["conv1_img"].shape == (tower.LAYER_TILES, 32 * n) and conv1.shape == (32, fp)
+    assert packed["conv1_img"].shape == (fp // n, 32 * n) and conv1.shape == (32, fp)
     assert torch.equal(conv1[:27], packed["conv1_w"]) and not conv1[27:].any()
 
 
