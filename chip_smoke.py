@@ -146,8 +146,11 @@ fatal on failure:
     late-game positions of seeded random playouts;
 16. [supervisor] the supervisor runs ``cli training --device cuda
     --generations 1`` on a tiny config; the child exits 0 with a checkpoint;
-17. print the ``kernels`` JSON line, the card's name and power limit, and
-    last ``{"ok": true, "device": {...}}``.
+17. print the ``kernels`` JSON line (``tower``: the fused kernel up to 64
+    filters, at F=64; ``tower_wide``: the fused kernel at 128 and 256
+    filters, ``tower_kernel_wide``, at F=256 and the batch most of [wide]'s
+    forwards have; ``tower_layer`` at F=512), the card's name and power
+    limit, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 package is not beside this script. A copy of every number goes to
@@ -2024,7 +2027,22 @@ def main() -> int:
     for f, per in width_errs.items():
         for b, e in per.items():
             compared_at.setdefault((tower.kernel_width(f), b), []).append(e)
-    launched = [e for f, per in counted_shapes.items() for b in per for e in compared_at[f, b]]
+    # the wide kernel (tower_kernel_wide, packed widths 128 and 256) has an
+    # entry of its own; the tower entry keeps the narrower widths
+    wide_widths = set(tower.WIDE_STAGE_SLABS)
+    narrow_shapes = {f: per for f, per in counted_shapes.items() if f not in wide_widths}
+    wide_shapes = {f: per for f, per in counted_shapes.items() if f in wide_widths}
+    launched = [e for f, per in narrow_shapes.items() for b in per for e in compared_at[f, b]]
+    wide_launched = [e for f, per in wide_shapes.items() for b in per for e in compared_at[f, b]]
+    wide_count = sum(by_batch(wide_shapes).values())
+    wide_width = tower.kernel_width(WIDE_NET["filters"])
+    at_wide = {}
+    for g in report["wide"]["generations"]:
+        add_launches(at_wide, g["launches_by_width"])
+    at_wide = at_wide.get(wide_width, {})
+    if wide_count == 0 or not at_wide:
+        fail(f"the wide kernel was not launched on the main path: {counted_shapes}")
+    wide_boards = max(at_wide, key=at_wide.get)
     # the layer kernel's main path: the [wider] generations (every forward at
     # F=512) and the [widest] self-play (at F=1024), 13 launches of the layer
     # kernel a forward
@@ -2042,6 +2060,8 @@ def main() -> int:
     at_wider = wider_shapes[wider_width]
     wider_boards = max(at_wider, key=at_wider.get)
     fused_times = {f: per for f, per in report["times_widths"].items() if not tower.is_layer_width(f)}
+    if wide_boards not in fused_times[WIDE_NET["filters"]]:
+        fail(f"most launches of [wide] are at B={wide_boards}, which was not timed: {at_wide}")
     layer_times = {f: per for f, per in report["times_widths"].items() if tower.is_layer_width(f)}
     if wider_boards not in layer_times[wider_width]:
         fail(f"most launches of [wider] are at B={wider_boards}, which was not timed: {wider_shapes}")
@@ -2049,26 +2069,27 @@ def main() -> int:
     # --- 17. result lines ------------------------------------------------------
     # time, bound and library time at the batch most launches of phase 8's
     # generations have (their self-play's leaves; F=64); the error is the
-    # largest over every width and shape the generations, [wide], the tools
-    # and the [dp] ranks launched; the times at F=128 and 256 beside them
+    # largest over every width up to 64 and shape the generations, the
+    # tools and the [dp] ranks launched; the times at F=16 and 32 beside
+    # them
     t_report = times[report_boards]
     kernels = [{
         "name": "tower",
         "route": "cuda",
         "source": "connect4_tpu_torch/models/csrc/tower.cu",
         "replaces": "connect4_tpu/models/pallas_net.py:153",
-        # of the training generations of phase 8 and of [wide] (self-play
-        # and gating match of each), of the tools of [scripts] and of the
-        # [dp] ranks (sharded self-play and two mesh generations); the
-        # self-play path of phase 5 is counted beside it
-        "launches": counted,
+        # at widths up to 64, of the training generations of phase 8
+        # (self-play and gating match of each), of the tools of [scripts]
+        # and of the [dp] ranks (sharded self-play and two mesh
+        # generations); the self-play path of phase 5 is counted beside it
+        "launches": counted - wide_count,
         "launches_by_path": {"selfplay": launches, "generation": generation_launches,
-                             "wide": wide_launches, "scripts": scripts_launches,
+                             "scripts": scripts_launches,
                              "dp_selfplay": report["dp"]["launches"]["selfplay"],
                              "dp_generation": report["dp"]["launches"]["generation"]},
         "launches_by_tool": report["scripts"]["launches"],
-        "launches_by_boards": by_batch(counted_shapes),
-        "launches_by_width": counted_shapes,
+        "launches_by_boards": by_batch(narrow_shapes),
+        "launches_by_width": narrow_shapes,
         "boards": report_boards,
         "max_abs_err": max(e["model"]["tower_max"] for e in launched),
         "max_abs_err_nearest": max(e["nearest"]["tower_max"] for e in launched),
@@ -2081,8 +2102,35 @@ def main() -> int:
                       for b, t in times.items()},
         "by_width": {f: {b: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                          for b, t in per.items()}
-                     for f, per in fused_times.items()},
+                     for f, per in fused_times.items() if tower.kernel_width(f) not in wide_widths},
     }]
+    # the wide kernel: time, bound and library time at F=256 and the batch
+    # most of [wide]'s forwards have; its launches are those of the counted
+    # paths at widths 128 and 256 ([wide]'s generations); the error is the
+    # largest over every (width, batch) they launched
+    t_wide = fused_times[WIDE_NET["filters"]][wide_boards]
+    kernels.append({
+        "name": "tower_wide",
+        "route": "cuda",
+        "source": "connect4_tpu_torch/models/csrc/tower.cu",
+        "replaces": "connect4_tpu/models/pallas_net.py:153",
+        "launches": wide_count,
+        "launches_by_path": {"wide": wide_launches},
+        "launches_by_boards": by_batch(wide_shapes),
+        "launches_by_width": wide_shapes,
+        "filters": wide_width,
+        "boards": wide_boards,
+        "max_abs_err": max(e["model"]["tower_max"] for e in wide_launched),
+        "max_abs_err_nearest": max(e["nearest"]["tower_max"] for e in wide_launched),
+        "ms": t_wide["ms"],
+        "plain_ms": t_wide["plain_ms"],
+        "bound_ms": t_wide["bound_ms"],
+        "bound_by": t_wide["bound_by"],
+        "library_ms": t_wide["library_ms"],
+        "by_width": {f: {b: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                         for b, t in per.items()}
+                     for f, per in fused_times.items() if tower.kernel_width(f) in wide_widths},
+    })
     # the layer kernel (towers above 256 filters): time, bound and library
     # time at F=512 and the batch most of [wider]'s forwards have; its
     # launches are the layer kernel's own (13 a forward), in [wider] and

@@ -84,28 +84,65 @@
 // the next of 16, 32, 64, 128, 256 with zero weights). The layout above does
 // not grow: a ring of whole [F, F] taps is 256 KB at F=256 and the two
 // [128, F] activation buffers alone are 128 KB, and an m64nF accumulator is
-// F/2 registers a thread (128 at F=256), more than two blocks an SM allow.
+// F/2 registers a thread (128 at F=256).
 // - Bound. At F=256 a board costs 12 x 42 x 2 x 2304 x 256 + 42 x 2 x 27 x 256
 //   = 595 MFLOP (149 at F=128), so B=4096 takes at least 2.46 ms (0.62 ms)
-//   at 989 TFLOP/s: bound by operations. A block reads all weights from L2
-//   for its 128 rows, 128 FLOP a byte, so at the L2's few TB/s the weight
-//   stream, not the tensor cores, is the nearer limit of this design.
-// - tower_kernel_wide<F>: the same block (two warpgroups, 3 boards, X and Y
-//   resident, the input conv and the epilogue as above) with the full
-//   m64nF accumulator. At F=256 one block an SM (__launch_bounds__(256, 1):
-//   up to 255 registers a thread); at F=128 two (128 registers and about
-//   100 KB each), so that four warpgroups cover one another's waits. The
-//   weights stream as 16-deep k-slabs (16 x F bf16, 4 KB / 8 KB, contiguous
-//   in the same res_img, which is one slab after another in the order they
-//   are multiplied) through a ring of 8 slabs (32 KB / 64 KB) with
-//   full/empty mbarriers. A commit group is kGroup slabs of one tap; its A
-//   fragments are double-buffered, so one group is in flight while the next
-//   is loaded and issued (wgmma.wait_group 1). Thread 0 copies the group
-//   kGroups - 2 ahead into the stages released one group earlier. The whole
-//   layer chains in one accumulator from zero (72 / 144 steps), in the
-//   order tower_plain sums it, so the kernel and its emulation agree bit
-//   for bit as at F <= 64. Rows are 256 / 512 bytes, swizzled by the low
-//   three bits of the row, and the zero row is a whole row long.
+//   at 989 TFLOP/s: bound by operations. A block multiplies each weight byte
+//   into its 128 rows only, 128 FLOP a byte, so at the tensor cores' rate an
+//   SM takes about 30 bytes of weights a clock from L2, some 7.7 TB/s for the
+//   card: the weight stream is the nearer limit of a 3-board block. The
+//   first design of this kernel copied one 16-deep slab (4 / 8 KB) a copy
+//   from a consumer thread, whose whole warpgroup waited with it on each
+//   empty barrier; with its products switched off its copies alone took
+//   66-73% of its time (PERF.md section 6).
+// - tower_kernel_wide<F>: one block an SM of three warpgroups. A producer
+//   warpgroup (setmaxnreg 40; one thread issues every copy) and two consumer
+//   warpgroups (setmaxnreg 232; ptxas compiles every thread to the launch
+//   bound's 168 registers, which hold the m64nF accumulator and two sets of
+//   A fragments), which never wait on an empty barrier. The consumers keep the
+//   block's 3 boards resident across all 13 layers as X and Y (126 rows
+//   each: the tiles' two rows past the boards have no taps and are not
+//   stored), and run the input conv and the epilogue as above, the residual
+//   added in place. Only the consumers meet at each layer's barrier.
+// - A weight stage is 4 consecutive 16-deep slabs of one tap (64 input
+//   channels: 16 KB at F=128, 32 KB at 256): one cp.async.bulk under one
+//   full/empty barrier pair, one commit group of 4 products. res_img holds
+//   the slabs in the order they are multiplied, so a stage is a contiguous
+//   range, the whole layer still chains in one accumulator from zero in
+//   (tap, channel) order, and the kernel equals its emulation bit for bit
+//   (tower.wide_stages). A stage's A fragments are loaded before its full
+//   barrier is waited on; with one stage in flight the next is issued
+//   (wgmma.wait_group 1), then the one before it is released.
+// - The ring takes as many stages as fit beside X and Y, at most 8: 8 of 16
+//   KB at F=128, 3 of 32 KB at F=256. Budget at F=256 (232,448 B a block):
+//   X and Y 129,024, the zero row 512, the biases 2,048 (float32, two
+//   layers), the ring 98,304, 7 barriers 56, the slack that aligns the base
+//   to a 512-byte row 512: 230,456 B. Six stages of 16 KB fit too and
+//   measured no faster.
+// - At F=256 the blocks run in clusters of two (kWideCluster256): ring slot
+//   s is filled by block s % 2 with .multicast::cluster into both blocks,
+//   every consumer warp of the cluster releases it on the filling block's
+//   empty barrier (a remote arrive), and the other block expects the bytes
+//   on its own full barrier; waits across the cluster trap if they outlast
+//   2^33 clocks (mbar_wait_or_trap, see "Layer kernel"). The grid is
+//   rounded up to whole clusters (tower.wide_grid); a pad block, with no
+//   boards, takes part in every handshake and writes nothing. That halves
+//   the L2 weight stream (19.3 GB at B=4096 without). At F=128 a cluster of
+//   two measured 1% slower than one, so there a cluster is one block
+//   (kWideCluster128).
+// - F=128 runs one block an SM with 8 stages rather than two blocks with a
+//   producer warp each: ptxas gives 2 x 288 threads 96 registers a thread,
+//   the accumulator and the fragments spill, and that measured 1.70 ms at
+//   B=4096 against 1.17 ms (two blocks with a producer warpgroup each get
+//   80 and do not build).
+// - Measured (PERF.md section 6): with the products switched off the copy
+//   pipeline takes about 2.0 ms at F=256, B=4096 and 0.64 ms at F=128, and
+//   with the copies switched off the products take 3.2-3.8 ms and 1.0 ms:
+//   the copies are hidden at F=256, where the card then runs at its 700 W
+//   power limit and the SM clock drops to 1.5-1.9 GHz; still exposed are
+//   the 13 epilogues of one block an SM (the tensor cores idle while a
+//   layer's outputs are written) and the rounds (B=4096 is 1366 blocks,
+//   11 rounds on 132 SMs).
 //
 // Layer kernel (towers wider than 256 filters, at any width; tower.py pads F
 // to the next multiple of 64 that a column tile N of 256, 224, 192 or 160
@@ -809,47 +846,167 @@ int launch(const float* x, const __nv_bfloat16* conv1_img, const __nv_bfloat16* 
 
 // ---------------------------------------------------------------------------
 // ---------------------------------------------------------------------------
-// F = 128 and 256 (see "Wide towers" in the header): one block an SM, the
-// weights streamed as 16-deep k-slabs, the whole layer chained in one
-// m64nF accumulator, one commit group in flight while the next is issued.
+// What the wide kernel and the layer kernel share: a producer warpgroup's
+// and its consumers' registers, the block's shared-memory limit, cluster
+// handshakes.
+
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kSmemLimit = 232448;                          // a block's shared memory
+
+// the taps of row `row` of a 3-board tile that lie on its board (bit tap);
+// none for the rows past the tile's boards
+__device__ __forceinline__ uint32_t board_tap_mask(int row) {
+  if (row >= kTileBoards * kArea) return 0u;
+  const int p = row % kArea, r = p / kWidth, c = p % kWidth;
+  uint32_t m = 0;
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int rr = r + tap / 3 - 1, cc = c + tap % 3 - 1;
+    if (rr >= 0 && rr < kHeight && cc >= 0 && cc < kWidth) m |= 1u << tap;
+  }
+  return m;
+}
+
+__device__ __forceinline__ uint32_t special_reg(int which) {
+  uint32_t v;
+  switch (which) {
+    case 0: asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v)); break;
+    case 1: asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(v)); break;
+    default: asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(v)); break;
+  }
+  return v;
+}
+// mbar_wait for barriers that span the blocks of a cluster: a wait that
+// outlasts 2^33 clocks traps, which poisons the process's CUDA context (see
+// "Layer kernel" in the header)
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  for (int i = 0;; ++i) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 33)) {
+      asm volatile("trap;\n");
+    }
+  }
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// arrive on the barrier at `bar` (an offset in this block's shared memory) of
+// block `cta` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+// the same bytes into `dst` and complete_tx on `bar` of every block in `mask`
+__device__ __forceinline__ void bulk_copy_multicast(uint32_t dst, const void* src, uint32_t bytes,
+                                                    uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// ---------------------------------------------------------------------------
+// F = 128 and 256 (see "Wide towers" in the header): a producer issues
+// every weight copy, a weight stage is several slabs of one tap, multicast
+// to the blocks of a cluster; the whole layer chained in one m64nF
+// accumulator.
+
+constexpr int kWideCluster128 = 1;  // blocks a weight stage is multicast to at F=128
+constexpr int kWideCluster256 = 2;  // ... at F=256
+constexpr int kWideStage128 = 4;    // 16-deep slabs a weight stage holds at F=128
+constexpr int kWideStage256 = 4;    // ... at F=256
 
 template <int F>
 struct WideCfg {
-  static constexpr int kRows = kWarpgroups * 64;
-  static constexpr int kValidRows = kTileBoards * kArea;
+  static constexpr int kConsumers = kWarpgroups * 128;  // two warpgroups, one 64-row tile each
+  static constexpr int kThreads = kConsumers + 128;     // and a producer warpgroup
+  static constexpr int kValidRows = kTileBoards * kArea;  // 126: X and Y hold these rows only
   static constexpr int kRB = 2 * F;                   // bytes per activation row
   static constexpr int kKS = F / 16;                  // slabs per tap
   static constexpr int kSlabBytes = 2 * F * 16;       // one 16-deep slab of a tap
-  static constexpr int kGroup = 2;                    // slabs a commit group multiplies
-  // F=128: two blocks an SM (128 registers a thread), each with a 32 KB ring
-  // of 8 slabs; F=256: one block, a 64 KB ring of 8 slabs
-  static constexpr int kBlocksPerSM = F == 128 ? 2 : 1;
-  static constexpr int kStages = (F == 128 ? 32768 : 65536) / kSlabBytes;
-  static constexpr int kGroups = kStages / kGroup;    // commit groups the ring holds
-  static constexpr int kLayerGroups = 9 * kKS / kGroup;
-  static constexpr int kActBytes = kRows * kRB;
-  // offsets from a 1024-byte aligned base; X, Y and the zero row are
-  // aligned to kRB, so a slab's ldmatrix address is the tap's XOR (ks << 5)
+  static constexpr int kCluster = F == 128 ? kWideCluster128 : kWideCluster256;
+  // a stage: kStageSlabs consecutive slabs of one tap, one copy, one
+  // full/empty barrier pair, one commit group
+  static constexpr int kStageSlabs = F == 128 ? kWideStage128 : kWideStage256;
+  static constexpr int kStageBytes = kStageSlabs * kSlabBytes;
+  static constexpr int kBuffers = 2;                  // A fragment sets: one stage in flight while the next is issued
+  static constexpr int kLayerStages = 9 * kKS / kStageSlabs;
+  static constexpr int kActBytes = kValidRows * kRB;
+  // offsets from a kRB-aligned base; X, Y and the zero row are aligned to
+  // kRB, so a slab's ldmatrix address is the tap's XOR (ks << 5)
   static constexpr int kXOff = 0;
   static constexpr int kYOff = kActBytes;
-  static constexpr int kZeroOff = 2 * kActBytes;      // one zero row of kRB <= 512 bytes
-  static constexpr int kRingOff = kZeroOff + 1024;
-  static constexpr int kBiasOff = kRingOff + kStages * kSlabBytes;
-  static constexpr int kMaskOff = kBiasOff + 2 * F * 4;
-  static constexpr int kKtabOff = kMaskOff + kRows * 2;
-  static constexpr int kBarOff = kKtabOff + kMaxK0 * 4;
-  static constexpr int kSmem = kBarOff + (2 * kStages + 1) * 8 + 1024;  // + alignment slack
+  static constexpr int kZeroOff = 2 * kActBytes;      // one zero row
+  static constexpr int kBiasOff = kZeroOff + kRB;     // float [2][F]
+  static constexpr int kRingOff = kBiasOff + 2 * F * 4;
+  // as many stages as fit (at most 8) beside the barriers (at most 17) and
+  // the alignment slack
+  static constexpr int kFit = (kSmemLimit - kRingOff - 17 * 8 - kRB) / kStageBytes;
+  static constexpr int kWStages = kFit > 8 ? 8 : kFit;
+  static constexpr int kBarOff = kRingOff + kWStages * kStageBytes;
+  static constexpr int kSmem = kBarOff + (2 * kWStages + 1) * 8 + kRB;  // + alignment slack
   // the input conv stages conv1's weight image and the input planes in Y
   static constexpr int kXinOff = kYOff + F * kMaxK0 * 2;
-  static_assert(F * kMaxK0 * 2 + kRows * 8 <= kActBytes, "input staging must fit Y");
-  static_assert(kKS % kGroup == 0 && kLayerGroups % 2 == 0, "groups tile a layer in pairs");
-  static_assert(kGroups >= 3, "the ring holds the group in use, the one in flight and one ahead");
-  // 228 KB an SM, of which 1 KB a block is reserved
-  static_assert((kSmem + 1024) * kBlocksPerSM <= 233472, "the blocks' shared memory on an SM");
+  static_assert(F * kMaxK0 * 2 + 128 * 8 <= kActBytes, "input staging must fit Y");
+  static_assert(kKS % kStageSlabs == 0 && kLayerStages % kBuffers == 0, "stages tile a tap, pairs a layer");
+  static_assert(kWStages >= 3, "the ring holds the stage in use, the one in flight and one ahead");
+  static_assert(kRingOff % 128 == 0 && kBarOff % 8 == 0, "alignment");
+  static_assert(kSmem <= kSmemLimit, "shared memory");
 };
 
+// bias, residual, LeakyReLU, round to bf16, store the valid rows of one
+// 64-row tile swizzled (the rows past the tile's boards are not kept).
+// Accumulator layout: d[4j + 2h + e] is row g + 8h, column 8j + 2t + e of the
+// warp's 16 rows.
+template <int F, bool kResidual>
+__device__ __forceinline__ void wide_epilogue(const float (&acc)[F / 2], unsigned char* dst,
+                                              const float* bias, int row_g, int t) {
+#pragma unroll
+  for (int j = 0; j < F / 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_g + 8 * h;
+      if (row < kTileBoards * kArea) {
+        __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(
+            dst + row * (2 * F) + ((uint32_t(j) ^ swz<F>(row)) << 4) + 4 * t);
+        float y0 = acc[4 * j + 2 * h] + b.x;
+        float y1 = acc[4 * j + 2 * h + 1] + b.y;
+        if (kResidual) {
+          const float2 x = __bfloat1622float2(*out);
+          y0 += x.x;
+          y1 += x.y;
+        }
+        *out = __floats2bfloat162_rn(lrelu(y0), lrelu(y1));
+      }
+    }
+  }
+}
+
+// the consumer warpgroups' own barrier (the producer does not take part)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWarpgroups * 128) : "memory");
+}
+
 template <int F>
-__global__ void __launch_bounds__(kThreads, WideCfg<F>::kBlocksPerSM)
+__global__ void __launch_bounds__(WideCfg<F>::kThreads, 1)
 tower_kernel_wide(const float* __restrict__ x, const __nv_bfloat16* __restrict__ conv1_img,
                   const __nv_bfloat16* __restrict__ conv1_b,
                   const __nv_bfloat16* __restrict__ res_img,
@@ -857,105 +1014,106 @@ tower_kernel_wide(const float* __restrict__ x, const __nv_bfloat16* __restrict__
                   int n_boards, int cin0, int n_res_layers) {
   using C = WideCfg<F>;
   constexpr int ND = F / 2;  // accumulator registers per thread
-  constexpr int G = C::kGroup;
+  constexpr int W = C::kWStages;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* smem = smem_raw + ((uint32_t(C::kRB) - (smem_u32(smem_raw) & uint32_t(C::kRB - 1))) & uint32_t(C::kRB - 1));
   unsigned char* X = smem + C::kXOff;
   unsigned char* Y = smem + C::kYOff;
   float* bias = reinterpret_cast<float*>(smem + C::kBiasOff);       // [2][F]
-  uint16_t* tapmask = reinterpret_cast<uint16_t*>(smem + C::kMaskOff);
-  uint32_t* ktab = reinterpret_cast<uint32_t*>(smem + C::kKtabOff);
   uint16_t* xin = reinterpret_cast<uint16_t*>(smem + C::kXinOff);   // [rows][4] bf16 bits
   const uint32_t zero_s = smem_u32(smem + C::kZeroOff);
   const uint32_t x_s = smem_u32(X), y_s = smem_u32(Y);
   const uint32_t ring_s = smem_u32(smem + C::kRingOff);
   const uint32_t bar_s = smem_u32(smem + C::kBarOff);
-  // barriers: full[s] at bar_s + 8s, empty[s] at bar_s + 8(C::kStages + s), conv1 last
-  const uint32_t bar_c1 = bar_s + 16 * C::kStages;
+  // barriers: full[s] at bar_s + 8s, empty[s] at bar_s + 8(W + s), conv1 last
+  const auto w_full = [&](int s) { return bar_s + 8 * s; };
+  const auto w_empty = [&](int s) { return bar_s + 8 * (W + s); };
+  const uint32_t bar_c1 = bar_s + 16 * W;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int wg = tid >> 7;
-  const int w4 = (tid >> 5) & 3;
-  const int g = lane >> 2, t = lane & 3;
+  const uint32_t rank = special_reg(0);
   const long row_base = long(blockIdx.x) * C::kValidRows;
   const long total_rows = long(n_boards) * kArea;
+  // <= 0 in the pad block that rounds the grid up to whole clusters: it
+  // takes part in every handshake and writes nothing
   const int valid_rows =
       int(total_rows - row_base < C::kValidRows ? total_rows - row_base : C::kValidRows);
   const int k0 = 9 * cin0;              // depth of the input conv
   const int ksteps0 = (k0 + 15) / 16;
-  const int total_groups = n_res_layers * C::kLayerGroups;
-  const unsigned char* res_bytes = reinterpret_cast<const unsigned char*>(res_img);
 
-  // Thread 0 copies commit group `q` (slabs qG .. qG+G-1 of the whole
-  // residual image, in the order they are multiplied) into their stages,
-  // once every warp has released the group that used them before.
-  auto load_group = [&](int q) {
-#pragma unroll
-    for (int i = 0; i < G; ++i) {
-      const int slab = q * G + i;
-      const int s = slab % C::kStages;
-      const uint32_t use = uint32_t(slab / C::kStages);
-      if (use > 0) mbar_wait(bar_s + 8 * (C::kStages + s), (use - 1) & 1u);
-      mbar_expect_tx(bar_s + 8 * s, C::kSlabBytes);
-      bulk_copy(ring_s + s * C::kSlabBytes, res_bytes + size_t(slab) * C::kSlabBytes,
-                C::kSlabBytes, bar_s + 8 * s);
-    }
-  };
-
-  // --- barriers, first weight copies ---------------------------------------
+  // --- barriers, tables and the input planes (rounded to bf16) -------------
   if (tid == 0) {
-    for (int s = 0; s < C::kStages; ++s) {
-      mbar_init(bar_s + 8 * s, 1);
-      mbar_init(bar_s + 8 * (C::kStages + s), kWarpgroups * 4);  // lane 0 of each warp
+    for (int s = 0; s < W; ++s) {
+      mbar_init(w_full(s), 1);
+      mbar_init(w_empty(s), C::kCluster * kWarpgroups * 4);  // lane 0 of each consumer warp of the cluster
     }
     mbar_init(bar_c1, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    const uint32_t c1_bytes = uint32_t(F) * ksteps0 * 16 * 2;
-    mbar_expect_tx(bar_c1, c1_bytes);
-    bulk_copy(y_s, conv1_img, c1_bytes, bar_c1);
-    for (int q = 0; q < C::kGroups - 2 && q < total_groups; ++q) load_group(q);
   }
-
-  // --- tables and the input planes (rounded to bf16) -----------------------
-  for (int i = tid; i < C::kRB / 4; i += kThreads)
+  for (int i = tid; i < C::kRB / 4; i += C::kThreads)
     reinterpret_cast<uint32_t*>(smem + C::kZeroOff)[i] = 0u;
-  for (int i = tid; i < C::kRows; i += kThreads) {
-    uint32_t m = 0;
-    if (i < C::kValidRows) {
-      const int p = i % kArea, r = p / kWidth, c = p % kWidth;
-      for (int tap = 0; tap < 9; ++tap) {
-        const int rr = r + tap / 3 - 1, cc = c + tap % 3 - 1;
-        if (rr >= 0 && rr < kHeight && cc >= 0 && cc < kWidth) m |= 1u << tap;
-      }
-    }
-    tapmask[i] = uint16_t(m);
-  }
-  for (int k = tid; k < kMaxK0; k += kThreads) {
-    uint32_t e = 0;
-    if (k < k0) {
-      const int tap = k / cin0, ci = k % cin0;
-      const int off = (tap / 3 - 1) * kWidth + (tap % 3 - 1);
-      e = (uint32_t(off) & 0xFFu) | (uint32_t(ci) << 8) | (0x10000u << tap);
-    }
-    ktab[k] = e;
-  }
-  for (int i = tid; i < C::kRows * 4; i += kThreads) {
+  for (int i = tid; i < 128 * 4; i += C::kThreads) {
     const int row = i >> 2, ci = i & 3;
     const float v = (ci < cin0 && row < valid_rows) ? x[(row_base + row) * cin0 + ci] : 0.f;
     xin[i] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
   }
-  for (int i = tid; i < F; i += kThreads) {
+  for (int i = tid; i < F; i += C::kThreads) {
     bias[i] = __bfloat162float(conv1_b[i]);
     if (n_res_layers > 0) bias[F + i] = __bfloat162float(res_b[i]);
   }
   __syncthreads();
+  cluster_sync();  // every block's barriers are set before a multicast or a remote arrive
 
+  if (tid >= C::kConsumers) {
+    // --- the producer: one thread issues every copy in the order they are used
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == C::kConsumers) {
+      const uint32_t c1_bytes = uint32_t(F) * ksteps0 * 16 * 2;
+      mbar_expect_tx(bar_c1, c1_bytes);
+      bulk_copy(y_s, conv1_img, c1_bytes, bar_c1);
+      // Stage n holds slabs n*kStageSlabs ... of the residual image (one tap's
+      // kStageSlabs consecutive slabs, in the order they are multiplied).
+      // Ring slot s is filled by block s % kCluster, multicast to all: it
+      // waits until every consumer warp of the cluster has released the
+      // slot; the others expect the bytes once the slot's previous use has
+      // landed here.
+      const unsigned char* res_bytes = reinterpret_cast<const unsigned char*>(res_img);
+      constexpr uint16_t kMask = uint16_t((1u << C::kCluster) - 1u);
+      const int total = n_res_layers * C::kLayerStages;
+      for (int n = 0; n < total; ++n) {
+        const int s = n % W;
+        const uint32_t use = uint32_t(n / W);
+        if (uint32_t(s % C::kCluster) == rank) {
+          if (use > 0) mbar_wait_or_trap(w_empty(s), (use - 1) & 1u);
+          mbar_expect_tx(w_full(s), C::kStageBytes);
+          const unsigned char* src = res_bytes + size_t(n) * C::kStageBytes;
+          if constexpr (C::kCluster > 1)
+            bulk_copy_multicast(ring_s + s * C::kStageBytes, src, C::kStageBytes, w_full(s), kMask);
+          else
+            bulk_copy(ring_s + s * C::kStageBytes, src, C::kStageBytes, w_full(s));
+        } else {
+          if (use > 0) mbar_wait_or_trap(w_full(s), (use - 1) & 1u);
+          mbar_expect_tx(w_full(s), C::kStageBytes);
+        }
+      }
+    }
+    __syncwarp();
+    cluster_sync();  // no block leaves while another may still arrive on its barriers
+    return;
+  }
+
+  // --- the consumers: two warpgroups of 64 rows, one m64nF accumulator each
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int lane = tid & 31;
+  const int wg = tid >> 7;
+  const int w4 = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  // rows this thread addresses for ldmatrix (lane & 15) and owns in the
+  // accumulator (g, g + 8) in its warpgroup's tile
   const int tile_row = wg * 64 + w4 * 16;
   const int row_l = tile_row + (lane & 15);
   const int row_g = tile_row + g;
-  const uint32_t mask_l = tapmask[row_l];
+  const uint32_t mask_l = board_tap_mask(row_l);
 
   float acc[ND];
 
@@ -963,12 +1121,13 @@ tower_kernel_wide(const float* __restrict__ x, const __nv_bfloat16* __restrict__
   mbar_wait(bar_c1, 0);
   {
     const int r0 = row_g, r1 = r0 + 8;
-    const uint32_t m0 = tapmask[r0], m1 = tapmask[r1];
+    const uint32_t m0 = board_tap_mask(r0), m1 = board_tap_mask(r1);
+    // element k of the row's im2col row: tap k / cin0, channel k % cin0
     auto val = [&](int row, uint32_t m, int k) -> uint32_t {
-      const uint32_t e = ktab[k];
-      const int off = int(int8_t(e & 0xFFu));
-      const int ci = int((e >> 8) & 0xFFu);
-      return (m & (e >> 16)) ? uint32_t(xin[(row + off) * 4 + ci]) : 0u;
+      if (k >= k0) return 0u;
+      const int tap = k / cin0, ci = k - tap * cin0;
+      if (!((m >> tap) & 1u)) return 0u;
+      return uint32_t(xin[(row + (tap / 3 - 1) * kWidth + (tap % 3 - 1)) * 4 + ci]);
     };
     auto pair = [&](int row, uint32_t m, int k) -> uint32_t {
       return val(row, m, k) | (val(row, m, k + 1) << 16);
@@ -991,106 +1150,111 @@ tower_kernel_wide(const float* __restrict__ x, const __nv_bfloat16* __restrict__
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
-    epilogue<F, false>(acc, X, bias, row_g, t);
+    wide_epilogue<F, false>(acc, X, bias, row_g, t);
   }
 
   // --- residual blocks: layer l reads X (even l) or Y (odd l) --------------
-  for (int l = 0; l < n_res_layers; ++l) {
-    __syncthreads();  // the previous layer's output is complete
-    for (int i = tid; i < F && l + 1 < n_res_layers; i += kThreads)
+  constexpr int S = C::kStageSlabs;
+  constexpr int NB = C::kBuffers;
+  // this warp's share of the products has read stage `at`
+  auto release = [&](int at) {
+    if (lane == 0) {
+      const int s = at % W;
+      mbar_arrive_cluster(w_empty(s), uint32_t(s % C::kCluster));
+    }
+  };
+  int n0 = 0;  // the layer's first stage, counted over the whole tower
+  for (int l = 0; l < n_res_layers; ++l, n0 += C::kLayerStages) {
+    consumer_sync();  // the previous layer's output is complete
+    for (int i = tid; i < F && l + 1 < n_res_layers; i += C::kConsumers)
       bias[((l + 1) & 1 ? 0 : F) + i] = __bfloat162float(res_b[(l + 1) * F + i]);
     const bool odd = l & 1;
     const uint32_t src_s = odd ? y_s : x_s;
     unsigned char* dst = odd ? X : Y;
     const float* lbias = bias + (odd ? 0 : F);
-    const int q0 = l * C::kLayerGroups;  // the layer's first commit group
 
-    // shared-memory address this lane hands ldmatrix for slab 0 of tap `tap`
-    auto a_addr = [&](int tap) -> uint32_t {
-      const int src_row = row_l + (tap / 3 - 1) * kWidth + (tap % 3 - 1);
-      const uint32_t a_off =
-          uint32_t(src_row) * C::kRB + ((uint32_t(lane >> 4) ^ swz<F>(src_row)) << 4);
-      return ((mask_l >> tap) & 1u) ? src_s + a_off : zero_s + (a_off & uint32_t(C::kRB - 1));
-    };
-    // Issue commit group j of the layer (G slabs of one tap) with its A
-    // fragments in `a`; then, with at most this group in flight, release
-    // the previous group's stages and let thread 0 copy the group
-    // kGroups - 2 ahead into the stages released one group earlier.
-    auto step = [&](int j, uint32_t (&a)[G][4]) {
-      const int tap = j / (C::kKS / G);
-      const int kk = (j % (C::kKS / G)) * G;
-      const uint32_t a_s = a_addr(tap);
-#pragma unroll
-      for (int i = 0; i < G; ++i) ldmatrix_x4(a[i], a_s ^ uint32_t((kk + i) << 5));
-      const int slab = (q0 + j) * G;
-      uint32_t w_s[G];
-#pragma unroll
-      for (int i = 0; i < G; ++i) {
-        const int s = (slab + i) % C::kStages;
-        mbar_wait(bar_s + 8 * s, uint32_t((slab + i) / C::kStages) & 1u);
-        w_s[i] = ring_s + s * C::kSlabBytes;
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int i = 0; i < G; ++i)
-        Mma<F>::add(acc, a[i], b_desc<F>(w_s[i]), (j > 0 || i > 0) ? 1u : 0u);
-      wgmma_commit();
-      if (j > 0) {
-        wgmma_wait<1>();
-        if (lane == 0) {
-#pragma unroll
-          for (int i = 0; i < G; ++i)
-            mbar_arrive(bar_s + 8 * (C::kStages + (slab - G + i) % C::kStages));
-        }
-      }
-      const int nxt = q0 + j + C::kGroups - 2;
-      if (tid == 0 && nxt < total_groups) load_group(nxt);
-    };
-
-    uint32_t a0[G][4], a1[G][4];
+    // Stage j of the layer (slabs jS ... jS + S - 1, of one tap) is one
+    // commit group with its A fragments in set j % NB. Once it is issued,
+    // the stage before it has been multiplied and is released.
+    uint32_t a[NB][S][4];
 #pragma unroll 1
-    for (int j = 0; j < C::kLayerGroups; j += 2) {
-      step(j, a0);
-      step(j + 1, a1);
+    for (int j0 = 0; j0 < C::kLayerStages; j0 += NB) {
+#pragma unroll
+      for (int u = 0; u < NB; ++u) {
+        const int j = j0 + u;
+        const int tap = j * S / C::kKS;
+        const int kk = j * S % C::kKS;
+        const int src_row = row_l + (tap / 3 - 1) * kWidth + (tap % 3 - 1);
+        const uint32_t a_off =
+            uint32_t(src_row) * C::kRB + ((uint32_t(lane >> 4) ^ swz<F>(src_row)) << 4);
+        const uint32_t a_s = ((mask_l >> tap) & 1u) ? src_s + a_off : zero_s + (a_off & uint32_t(C::kRB - 1));
+#pragma unroll
+        for (int i = 0; i < S; ++i) ldmatrix_x4(a[u][i], a_s ^ uint32_t((kk + i) << 5));
+        const int at = n0 + j;
+        mbar_wait_or_trap(w_full(at % W), uint32_t(at / W) & 1u);
+        const uint32_t w_s = ring_s + (at % W) * C::kStageBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < S; ++i)
+          Mma<F>::add(acc, a[u][i], b_desc<F>(w_s + i * C::kSlabBytes), (j > 0 || i > 0) ? 1u : 0u);
+        wgmma_commit();
+        // unconditional, so that the compiler sees every fragment set free
+        // before it is loaded again (a wait in a branch makes it serialise
+        // the products)
+        wgmma_wait<NB - 1>();
+        if (j >= NB - 1) release(at - (NB - 1));
+      }
     }
     wgmma_wait<0>();
     reg_fence(acc);
-    if (lane == 0) {
-      const int slab = (q0 + C::kLayerGroups - 1) * G;
-#pragma unroll
-      for (int i = 0; i < G; ++i) mbar_arrive(bar_s + 8 * (C::kStages + (slab + i) % C::kStages));
-    }
+    for (int i = NB - 1; i > 0; --i) release(n0 + C::kLayerStages - i);
 
     if (odd)
-      epilogue<F, true>(acc, dst, lbias, row_g, t);
+      wide_epilogue<F, true>(acc, dst, lbias, row_g, t);
     else
-      epilogue<F, false>(acc, dst, lbias, row_g, t);
+      wide_epilogue<F, false>(acc, dst, lbias, row_g, t);
   }
-  __syncthreads();
+  consumer_sync();
 
   // --- store the tile's valid rows, un-swizzled ---------------------------
   constexpr int kVec = F / 8;
-  for (int i = tid; i < valid_rows * kVec; i += kThreads) {
+  for (int i = tid; i < valid_rows * kVec; i += C::kConsumers) {
     const int row = i / kVec, c = i % kVec;
     reinterpret_cast<uint4*>(out + (row_base + row) * F)[c] =
         *reinterpret_cast<const uint4*>(X + row * C::kRB + ((uint32_t(c) ^ swz<F>(row)) << 4));
   }
+  cluster_sync();
 }
 
 template <int F>
 int launch_wide(const float* x, const __nv_bfloat16* conv1_img, const __nv_bfloat16* conv1_b,
                 const __nv_bfloat16* res_img, const __nv_bfloat16* res_b, __nv_bfloat16* out,
                 int n_boards, int cin0, int n_res_layers, cudaStream_t stream) {
+  using C = WideCfg<F>;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        tower_kernel_wide<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, WideCfg<F>::kSmem);
+    cudaError_t err =
+        cudaFuncSetAttribute(tower_kernel_wide<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
     if (err != cudaSuccess) return int(err);
     configured = true;
   }
+  // one block a 3-board tile, rounded up to whole clusters (tower.wide_grid)
   const int blocks = (n_boards + kTileBoards - 1) / kTileBoards;
-  tower_kernel_wide<F><<<blocks, kThreads, WideCfg<F>::kSmem, stream>>>(
-      x, conv1_img, conv1_b, res_img, res_b, out, n_boards, cin0, n_res_layers);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(C::kCluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned((blocks + C::kCluster - 1) / C::kCluster * C::kCluster));
+  cfg.blockDim = dim3(unsigned(C::kThreads));
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, tower_kernel_wide<F>, x, conv1_img, conv1_b, res_img, res_b, out,
+                                       n_boards, cin0, n_res_layers);
+  if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }
 
@@ -1150,9 +1314,6 @@ constexpr int kSlabChannels = 64;                           // input channels a 
 constexpr int kInStages = 2;                                // the input ring: 2 k-slabs of 16 KB
 constexpr int kInSlabBytes = 128 * kSlabChannels * 2;       // [128 rows][64 channels] bf16
 constexpr int kCluster = 2;                                 // blocks a weight stage is multicast to
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 232;
-constexpr int kSmemLimit = 232448;                          // a block's shared memory
 
 template <int N>
 struct LayerCfg {
@@ -1182,72 +1343,6 @@ struct LayerCfg {
   static_assert(kSmem <= kSmemLimit, "a block's shared memory");
 };
 
-// the taps of row `row` of a 3-board tile that lie on its board (bit tap);
-// none for the rows past the tile's boards
-__device__ __forceinline__ uint32_t board_tap_mask(int row) {
-  if (row >= kTileBoards * kArea) return 0u;
-  const int p = row % kArea, r = p / kWidth, c = p % kWidth;
-  uint32_t m = 0;
-#pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const int rr = r + tap / 3 - 1, cc = c + tap % 3 - 1;
-    if (rr >= 0 && rr < kHeight && cc >= 0 && cc < kWidth) m |= 1u << tap;
-  }
-  return m;
-}
-
-__device__ __forceinline__ uint32_t special_reg(int which) {
-  uint32_t v;
-  switch (which) {
-    case 0: asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v)); break;
-    case 1: asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(v)); break;
-    default: asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(v)); break;
-  }
-  return v;
-}
-// mbar_wait for the layer kernel, whose barriers span the blocks of a
-// cluster: a wait that outlasts 2^33 clocks traps, which poisons the
-// process's CUDA context (see "Layer kernel" in the header)
-__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long start = 0;
-  for (int i = 0;; ++i) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1ll << 33)) {
-      asm volatile("trap;\n");
-    }
-  }
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// arrive on the barrier at `bar` (an offset in this block's shared memory) of
-// block `cta` of the cluster
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
-      "r"(cta)
-      : "memory");
-}
-// the same bytes into `dst` and complete_tx on `bar` of every block in `mask`
-__device__ __forceinline__ void bulk_copy_multicast(uint32_t dst, const void* src, uint32_t bytes,
-                                                    uint32_t bar, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
-      " [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
-      : "memory");
-}
 // the box at (x = channel, y = row) of a tensor map, swizzled as the map says
 __device__ __forceinline__ void tensor_copy_2d(uint32_t dst, const CUtensorMap* map, int x, int y,
                                                uint32_t bar) {

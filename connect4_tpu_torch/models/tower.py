@@ -20,7 +20,9 @@ tap's shift and mask; a tap's weights are the shared-memory operand,
 streamed by asynchronous bulk copies through a ring of ``mbarrier``s.
 ``pack_weights`` therefore also lays the weights out as the exact
 shared-memory images the kernel's matrix descriptors read (``conv1_img``,
-``res_img``), and ``tile_plan`` mirrors the launcher's choice of tile.
+``res_img``), and ``tile_plan`` mirrors the launcher's choice of tile
+(``wide_grid``, ``wide_plan`` and ``wide_stages`` the grid, block and
+weight stages of the kernel at 128 and 256 filters).
 
 Widths. The kernel is instantiated at ``KERNEL_FILTERS``; a net of any
 other width up to 256 runs at the next instantiated one (``kernel_width``).
@@ -82,6 +84,14 @@ KERNEL_FILTERS = (16, 32, 64, 128, 256)  # widths the fused kernel is instantiat
 LAYER_STEP = 64
 LAYER_TILE_WIDTHS = (256, 224, 192, 160)
 MAX_CHANNELS = 4
+# The wide kernel (F = 128 and 256), as the kWide* constants of csrc/tower.cu
+# set them: at F=256 the two blocks of a cluster share each weight stage by
+# multicast (at F=128 a cluster is one block); a stage is 4 slabs (64 input
+# channels of one tap: 16 KB at F=128, 32 KB at 256). wide_plan mirrors the
+# rest.
+WIDE_CLUSTER = {128: 1, 256: 2}
+WIDE_STAGE_SLABS = {128: 4, 256: 4}
+SMEM_BLOCK = 232448  # shared memory a block may use on an H100
 # How many terms of a residual conv's 9*Cin-deep sum form one product before
 # a float32 add: "step" 16 (one tensor-core step), "tap" Cin (one tap),
 # "layer" all. The kernel ships CHAIN at every width; the others exist (at
@@ -268,6 +278,49 @@ def tile_plan(n_boards: int) -> Tuple[int, int]:
     that small batches spread over the card. The layer kernel takes the
     same row tiles, each once for every column tile."""
     return TILE_BOARDS, -(-n_boards // TILE_BOARDS)
+
+
+def wide_grid(n_boards: int, fp: int) -> Tuple[int, int]:
+    """``(blocks, pad blocks)`` of the wide kernel (``tower_kernel_wide``)
+    at packed width ``fp`` (128 or 256) as ``launch_wide`` launches it: one
+    block a 3-board tile (``tile_plan``), rounded up to whole clusters of
+    ``WIDE_CLUSTER[fp]``. A pad block takes part in its cluster's
+    handshakes and writes nothing."""
+    tiles = tile_plan(n_boards)[1]
+    cluster = WIDE_CLUSTER[fp]
+    blocks = -(-tiles // cluster) * cluster
+    return blocks, blocks - tiles
+
+
+def wide_plan(fp: int) -> Dict[str, int]:
+    """The wide kernel's block at packed width ``fp`` (128 or 256), as
+    ``WideCfg`` in ``csrc/tower.cu`` computes it: one block an SM, of two
+    consumer warpgroups and a producer warpgroup; the slabs a weight stage
+    holds (16 input channels of one tap each, ``32 * fp`` bytes), its
+    bytes, the ring's stages (as many as fit, at most 8), and the shared
+    memory the block asks for: X and Y (the 126 rows of 3 boards each), a
+    zero row, the biases (float32, two layers), the ring, the barriers and
+    the slack that aligns the base to a row."""
+    row = 2 * fp
+    stage_slabs = WIDE_STAGE_SLABS[fp]
+    stage_bytes = stage_slabs * 32 * fp
+    ring_off = 2 * TILE_BOARDS * AREA * row + row + 2 * fp * 4
+    stages = min(8, (SMEM_BLOCK - ring_off - 17 * 8 - row) // stage_bytes)
+    return {
+        "threads": 384, "cluster": WIDE_CLUSTER[fp], "stage_slabs": stage_slabs, "stage_bytes": stage_bytes,
+        "ring_stages": stages, "smem": ring_off + stages * stage_bytes + (2 * stages + 1) * 8 + row,
+    }
+
+
+def wide_stages(fp: int, n_layers: int) -> torch.Tensor:
+    """``[stages, slabs a stage]``: the 16-deep slabs of ``res_img`` (counted
+    over the whole image, ``9 * fp / 16`` a layer) that each weight stage of
+    the wide kernel holds, in the order its producer issues them and its
+    consumers multiply them. Stage ``n`` lands in ring slot ``n % ring
+    stages``, which block ``slot % WIDE_CLUSTER[fp]`` of a cluster copies
+    for all of them."""
+    per = wide_plan(fp)["stage_slabs"]
+    return torch.arange(n_layers * 9 * fp // 16).reshape(-1, per)
 
 
 # ---------------------------------------------------------------------------

@@ -79,7 +79,10 @@ def test_kernel_equals_its_emulation_at_every_width():
     kernel equals the plain version with the tensor core's accumulate
     emulated on the same packed weights in every element, and the padded
     channels are 0. A block takes 3 boards, so the last block holds 3, 1
-    and 1 boards at B=261, 64 and 1."""
+    and 1 boards at B=261, 64 and 1. The wide kernel (F=128, 256) is also
+    held at batches whose block count is odd (B=2048, 392, 261, 49 and 1:
+    683, 131, 87, 17 and 1 blocks): at F=256 it runs in clusters of two
+    blocks, and the last cluster then holds a pad block."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -87,7 +90,9 @@ def test_kernel_equals_its_emulation_at_every_width():
         config = NetConfig(filters=f, n_fc_layers=2, n_residuals=2, compute_dtype="bfloat16")
         net = init_net(config, torch.Generator().manual_seed(f), device="cuda")
         packed = tower.pack_weights(config, fold_bn_params(net))
-        for b in (261, 64, 1):
+        for b in (261, 64, 1) if f < 128 else (2048, 392, 261, 64, 49, 1):
+            if f == 256:
+                assert tower.wide_grid(b, 256)[1] == int(b != 64), b  # a pad block but at B=64
             x2d = _positions(b, g)
             with torch.no_grad():
                 tk = tower.run_tower(packed, x2d)
