@@ -146,7 +146,23 @@ fatal on failure:
     late-game positions of seeded random playouts;
 16. [supervisor] the supervisor runs ``cli training --device cuda
     --generations 1`` on a tiny config; the child exits 0 with a checkpoint;
-17. print the ``kernels`` JSON line (``tower``: the fused kernel up to 64
+17. [entry] ``forward(*args)`` of ``connect4_tpu_torch.entry.entry()``
+    (the flagship net, F=64 / fc 6 / res 6, float32, unfolded; the
+    counterpart of ``__graft_entry__.entry``) on the card, held within
+    ``TOL_ENTRY`` (1e-4, phase 6's float32 limit) of the same forward on
+    the CPU with the same variables, on the zero example planes and on 256
+    legal positions; the output shapes and the warm forward's ms at B=256
+    (beside the same net called as a module) are printed with the card's
+    name and power limit; it launches no tower kernel;
+18. [dryrun] ``connect4_tpu_torch.entry.dryrun_multichip(8)``, eight gloo
+    ranks sharing ``cuda:0``, then ``dryrun_multichip(1)``, one NCCL rank:
+    each one ``TrainingLoop`` generation of the JAX hook's tiny
+    configuration in fresh rank processes (sharded self-play, the
+    data-parallel train pass, the checkpoint, rank 0's gating match), which
+    must end with its OK line; the ranks' lines (rank, device, backend) and
+    the seconds of each launch are printed, and a launch that fails fails
+    the run;
+19. print the ``kernels`` JSON line (``tower``: the fused kernel up to 64
     filters, at F=64; ``tower_wide``: the fused kernel at 128 and 256
     filters, ``tower_kernel_wide``, at F=256 and the batch most of [wide]'s
     forwards have; ``tower_layer`` at F=512), the card's name and power
@@ -1804,6 +1820,113 @@ def supervisor_phase():
     return {"exit": code, "checkpoint": saved, "seconds": seconds}
 
 
+# [entry]: the port's entry() forward on the card against the CPU, on the
+# example planes and on ENTRY_POSITIONS legal positions, held to phase 6's
+# float32 limit: IEEE float32 on both (no TF32), summed in different orders
+ENTRY_POSITIONS = 256
+TOL_ENTRY = TOL_TRAIN_F32["state"]
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def entry_phase(dev):
+    """Phase 17, [entry]: ``forward(*args)`` of the port's ``entry()`` on
+    the card, held within ``TOL_ENTRY`` of the same forward on the CPU with
+    the same variables, on the zero example planes and on 256 legal
+    positions; its warm ms at B=256, beside the same net called as a
+    module. The forward is the unfolded float32 net, so it launches no
+    tower kernel."""
+    import torch
+
+    from connect4_tpu_torch.config import NetConfig
+    from connect4_tpu_torch.entry import entry
+    from connect4_tpu_torch.env.core import to_planes
+    from connect4_tpu_torch.models import tower
+    from connect4_tpu_torch.models.net import init_net
+    from connect4_tpu_torch.utils import make_generator
+
+    forward, args = entry()
+    variables, planes = args
+    cpu_forward, _ = entry(device="cpu")
+    cpu_variables = {k: v.cpu() for k, v in variables.items()}
+    positions = (to_planes(random_positions(ENTRY_POSITIONS, make_generator(5, dev), dev))
+                 .permute(0, 2, 3, 1).float().contiguous())
+    tower.run_tower.launches = 0
+    errs, shapes = {}, {}
+    for name, x in (("example", planes), ("positions", positions)):
+        value, prior = forward(variables, x)
+        cpu_value, cpu_prior = cpu_forward(cpu_variables, x.cpu())
+        if (value.shape, prior.shape) != ((len(x),), (len(x), 7)) or value.device.type != "cuda":
+            fail(f"[entry] {name}: value {tuple(value.shape)} and prior {tuple(prior.shape)} on {value.device}")
+        if not (torch.isfinite(value).all() and torch.isfinite(prior).all()):
+            fail(f"[entry] {name}: the forward is not finite")
+        shapes[name] = [list(value.shape), list(prior.shape)]
+        errs[name] = {"value": (value.cpu() - cpu_value).abs().max().item(),
+                      "prior": (prior.cpu() - cpu_prior).abs().max().item()}
+    ms = timed_ms(lambda: forward(*args))
+    launches = tower.run_tower.launches
+    # a yardstick: the same net called as a module, without functional_call
+    # swapping its 80 tensors in and out on every call
+    net = init_net(NetConfig(filters=64, n_fc_layers=6, n_residuals=6), torch.Generator().manual_seed(0), dev)
+    with torch.no_grad():
+        module_ms = timed_ms(lambda: net(planes))
+    smi = card()
+    log(f"[entry] forward(*entry()) F=64 fc 6 res 6 float32 on {dev}: value {shapes['example'][0]}, prior "
+        f"{shapes['example'][1]}; against the CPU, |value| |prior| max: example planes "
+        f"{errs['example']['value']:.3g} {errs['example']['prior']:.3g}, {ENTRY_POSITIONS} positions "
+        f"{errs['positions']['value']:.3g} {errs['positions']['prior']:.3g} (limit {TOL_ENTRY:g}); warm forward "
+        f"at B={len(planes)} {ms:.4f} ms (the net called as a module {module_ms:.4f} ms); tower kernel launches "
+        f"{launches}; {smi}")
+    if max(max(e.values()) for e in errs.values()) > TOL_ENTRY:
+        fail(f"[entry] the card differs from the CPU beyond {TOL_ENTRY:g}: {errs}")
+    if launches:
+        fail(f"[entry] the float32 forward launched the tower kernel {launches} times")
+    return {"shapes": shapes, "max_abs_err": errs, "ms": ms, "module_ms": module_ms, "boards": len(planes),
+            "tower_launches": launches, "card": smi}
+
+
+def dryrun_phase():
+    """Phase 18, [dryrun]: ``dryrun_multichip(8)``, eight gloo ranks sharing
+    the card, then ``dryrun_multichip(1)``, one NCCL rank; each one
+    ``TrainingLoop`` generation in fresh rank processes, which must end with
+    its OK line. Prints the ranks' lines and the seconds of each launch; a
+    launch that fails raises, which fails the run."""
+    import io
+
+    import torch
+
+    from connect4_tpu_torch.entry import dryrun_multichip
+
+    cards = torch.cuda.device_count()
+    out = {}
+    for n in (8, 1):
+        where = ",".join(dict.fromkeys(f"cuda:{r % cards}" for r in range(n)))
+        backend = "nccl" if n <= cards else "gloo"
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(printed):
+                dryrun_multichip(n)
+        finally:
+            lines = printed.getvalue().splitlines()
+            for line in lines:
+                log(f"[dryrun] {line}")
+        seconds = time.perf_counter() - t0
+        ok = f"dryrun_multichip({n}): TrainingLoop generation on {n}-rank mesh ({where}, {backend}) — OK"
+        log(f"[dryrun] {n} rank{'s' if n > 1 else ''} ({backend} on {where}): {seconds:.1f} s from launch to exit")
+        if not lines or lines[-1] != ok:
+            fail(f"[dryrun] dryrun_multichip({n}) did not end with {ok!r}")
+        out[n] = {"seconds": seconds, "backend": backend, "devices": where,
+                  "ranks": [line for line in lines if line.startswith("dryrun rank")], "lines": lines}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1992,16 +2115,17 @@ def main() -> int:
                  f"{generation_shapes}")
         report["match"] = gen161_match(net, dev, shapes)
 
-        # --- 10.-16. [wide] and [wider]: the generations at 256 and 512
+        # --- 10.-18. [wide] and [wider]: the generations at 256 and 512
         # filters, [widest] self-play at 1024; the tools, data parallelism,
-        # the host search and solver, the supervisor -----------------------------
+        # the host search and solver, the supervisor, the two hooks --------------
         seconds = {}
         for name, phase in (("wide", lambda: wide_phase(dev, shapes)),
                             ("wider", lambda: wide_phase(dev, shapes, WIDER_NET, "wider", WIDER_DEPTH)),
                             ("widest", lambda: widest_phase(dev, shapes)),
                             ("scripts", lambda: scripts_phase(dev, shapes, run_dir)),
                             ("dp", lambda: drive_dp(dev, net, shapes)), ("nccl", lambda: nccl_one_rank(dev)),
-                            ("host", lambda: host_phase(dev)), ("supervisor", supervisor_phase)):
+                            ("host", lambda: host_phase(dev)), ("supervisor", supervisor_phase),
+                            ("entry", lambda: entry_phase(dev)), ("dryrun", dryrun_phase)):
             t0 = time.perf_counter()
             report[name] = phase()
             seconds[name] = time.perf_counter() - t0
@@ -2066,7 +2190,7 @@ def main() -> int:
     if wider_boards not in layer_times[wider_width]:
         fail(f"most launches of [wider] are at B={wider_boards}, which was not timed: {wider_shapes}")
 
-    # --- 17. result lines ------------------------------------------------------
+    # --- 19. result lines ------------------------------------------------------
     # time, bound and library time at the batch most launches of phase 8's
     # generations have (their self-play's leaves; F=64); the error is the
     # largest over every width up to 64 and shape the generations, the
@@ -2159,10 +2283,7 @@ def main() -> int:
                          for b, t in per.items()}
                      for f, per in layer_times.items()},
     })
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    smi = card()
     report["nvidia_smi"] = smi
     report["kernels"] = kernels
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
