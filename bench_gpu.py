@@ -24,7 +24,9 @@ Needs a CUDA card (the tower kernel is built for sm_90a) and ``nvcc``;
 raises without CUDA. Nothing in the port compiles at run time except that
 kernel, so the warm-up before the timed generation is a small one: the
 kernel's build, cuDNN's choice of algorithms and the allocator's first
-blocks.
+blocks. The timed generation's search is a new one, as each generation of
+``TrainingLoop`` is, so the capture of its CUDA graphs (two a pool width)
+is timed with it and printed.
 """
 
 import json
@@ -139,22 +141,21 @@ def main():
     train_step = make_train_step(state.net, state.optimizer)
 
     # ---- timed generation --------------------------------------------------
-    by_boards = {}  # the tower's launches by batch
-    launch = tower._tower_cuda
-
-    def counted(packed, x2d, chain=None):
-        by_boards[x2d.shape[0] // 42] = by_boards.get(x2d.shape[0] // 42, 0) + 1
-        return launch(packed, x2d, chain)
-
-    tower._tower_cuda = counted
     tower.run_tower.launches = 0
+    tower.run_tower.by_shape = {}
     torch.cuda.synchronize()
     t_gen = time.time()
     out = play(make_generator(0, dev))
     torch.cuda.synchronize()
     t_selfplay = time.time() - t_gen
     launches = tower.run_tower.launches
-    tower._tower_cuda = launch
+    by_boards = {}  # the tower's launches by batch
+    for per in tower.run_tower.by_shape.values():
+        for b, n in per.items():
+            by_boards[b] = by_boards.get(b, 0) + n
+    # the CUDA graphs the generation's search captured, one pair a pool width
+    captures = {rows: dict(ws.graphs.capture_ms) for (_, rows), ws in play.search.workspaces.items()
+                if ws.graphs is not None}
 
     planes, values, policies = training_arrays(out)
     n = len(values)
@@ -181,6 +182,7 @@ def main():
         f"loss: {losses[0]:.4f} -> {losses[-1]:.4f}  tower kernel launches: {launches}"
     )
     log(f"tower launches by batch (boards): {dict(sorted(by_boards.items(), reverse=True))}")
+    log(f"search graphs captured in the generation (ms, by pool width): {captures}")
     log(
         f"throughput: {moves_played / t_selfplay:,.0f} moves/s, "
         f"{sims_total / t_selfplay:,.0f} sims/s"

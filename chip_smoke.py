@@ -46,7 +46,20 @@ fatal on failure:
    rounded to nearest only: its emulated form takes tens of seconds at
    F=256);
 4. check the search and self-play on the card against the same code on
-   the CPU with the deterministic centre evaluator;
+   the CPU with the deterministic centre evaluator; then [graph]: the
+   search replayed from CUDA graphs (every search on the card runs so,
+   in every phase) against its eager form with one generator seed, at
+   the bench's pool (512 rows, K=8, 800 simulations in calls of 200) and
+   at the gating match's K=1 side (its 49 two-ply starts, 64 simulations,
+   gen-161 and the centre heuristic), and with fresh nets of 256 and 512
+   filters at 64 rows, K=8, ``GRAPH_SHAPES``: the eager form
+   twice, then the graphed form twice, the second call replaying the
+   graphs under ``torch.cuda.set_sync_debug_mode("error")``; equal bit for
+   bit in moves, policies, values and every tree slab, the same tower
+   launches (counted at replay); the search and iteration ms of both forms
+   and each graph's capture ms are printed. Then a refill pool
+   (``GRAPH_SYNC_POOL``) plays under the ``"warn"`` mode and its host
+   syncs are counted by the line that made them;
 5. drive the self-play path: a generation through
    ``make_net_evaluator`` + ``make_refill_play_fn`` with gen-161, 512 slots,
    K=8, 64 simulations, 512 games, noise and sampling on. Every game must
@@ -176,6 +189,7 @@ package is not beside this script. A copy of every number goes to
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -302,27 +316,24 @@ COMPARED = set()
 
 
 class LaunchShapes:
-    """Counts the tower kernel's launches by packed width and batch (boards)
-    while a path is driven, by standing in front of ``tower._tower_cuda``.
-    ``check`` fails when a path launched a (width, batch) that was not
-    compared with the plain version."""
+    """Reads the tower kernel's launches by packed width and batch (boards)
+    while a path is driven, from ``tower.run_tower.by_shape``, which the
+    wrapper counts where it launches and where a CUDA graph replays a
+    launch. ``take`` fails when a path launched a (width, batch) that was
+    not compared with the plain version."""
 
     def __init__(self, tower):
-        self.by_width = {}
-        launch = tower._tower_cuda
+        self.tower = tower
+        tower.run_tower.by_shape = {}
 
-        def counted(packed, x2d, chain=None):
-            per = self.by_width.setdefault(packed["conv1_w"].shape[1], {})
-            boards = x2d.shape[0] // 42
-            per[boards] = per.get(boards, 0) + 1
-            return launch(packed, x2d, chain)
-
-        tower._tower_cuda = counted
+    def drain(self) -> dict:
+        """The launches ``{width: {batch: n}}`` since the last call."""
+        seen, self.tower.run_tower.by_shape = self.tower.run_tower.by_shape, {}
+        return seen
 
     def take(self, path: str):
-        """The launches ``{width: {batch: n}}`` since the last call, checked."""
-        seen, self.by_width = self.by_width, {}
-        return check_shapes(path, seen)
+        """The launches since the last call, checked."""
+        return check_shapes(path, self.drain())
 
 
 def check_shapes(path: str, seen: dict) -> dict:
@@ -712,6 +723,13 @@ def drive_generations(dev, shapes, save_dir, net=GENERATION["net"], label="gener
             loop.run(generations=1)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
+            # what the card holds after the generation: the search graphs of
+            # its self-play and match go with their search objects (the
+            # collector first: the counting wrappers above tie the last
+            # generation's loop into a cycle)
+            gc.collect()
+            allocated_mb = torch.cuda.memory_allocated() / 2**20
+            reserved_mb = torch.cuda.memory_reserved() / 2**20
             previous = {k: v.clone() for k, v in loop.state.net.state_dict().items()}
             changed = [k for k in before if not torch.equal(before[k], previous[k])]
             unchanged = [k for k in before if k not in changed and not k.endswith("num_batches_tracked")]
@@ -744,6 +762,7 @@ def drive_generations(dev, shapes, save_dir, net=GENERATION["net"], label="gener
             phases = dict(loop.timer.seconds)
             info = {
                 "generation": gen, "seconds": seconds, "phases": phases, "moves": moves,
+                "allocated_mb": allocated_mb, "reserved_mb": reserved_mb,
                 "layer_launches": tower.run_tower.layer_launches,
                 "moves_per_s": moves / phases["generate"], "positions": int(len(values)),
                 "train_steps": len(losses), "first_loss": losses[0], "last_loss": losses[-1],
@@ -769,7 +788,7 @@ def drive_generations(dev, shapes, save_dir, net=GENERATION["net"], label="gener
                 f"{match['wins']}-{match['draws']}-{match['losses']} (return {match['return']:.3f}); "
                 f"tower kernel launches: self-play {counts['selfplay']}, match {counts['match']}"
                 + (f" (layer kernel launches {info['layer_launches']})" if per_forward else "")
-                + f"; plain tower entered {len(plain_calls)} times")
+                + f"; plain tower entered {len(plain_calls)} times; {allocated_mb:.1f} MB allocated on the card after it ({reserved_mb:.1f} MB reserved)")
     return {"config": {**G, "net": net}, "generations": generations}
 
 
@@ -1126,7 +1145,17 @@ def scripts_phase(dev, shapes, run_dir):
         f"{b['device_busy_ms']:.1f} ms of a traced segment of {b['traced_segment_ms']:.1f} ms = "
         f"{b['device_busy_share']:.1%} ({b['device_busy_share_of_untraced']:.1%} of an untraced segment); "
         f"{b['sims_per_s']:,.0f} sims/s = {b['achieved_tflops']:.3f} TFLOP/s, {b['mfu']:.3%} of the bf16 peak; "
-        f"bare forward {b['eval_tflops']:.1f} TFLOP/s ({b['eval_mfu']:.1%}); launches {launches['selfplay_breakdown']}")
+        f"bare forward {b['eval_tflops']:.1f} TFLOP/s ({b['eval_mfu']:.1%}); an iteration {b['iteration_ms']:.2f} ms, "
+        f"a level {b['level_ms']:.3f} ms, a tail {b['tail_ms']:.3f} ms; launches {launches['selfplay_breakdown']}")
+    g = b["graphed"]
+    log(f"[scripts] selfplay_breakdown, graphed: warm-up and captures {g['warm_s']:.2f} s (captures "
+        f"{', '.join(f'{k} {v:.1f} ms' for k, v in g['capture_ms'].items())}); blocking wave "
+        f"{g['blocking_wave_ms']:.1f} ms = init {g['init_ms']:.1f} + segments {g['segments_ms']:.1f} + finish "
+        f"{g['finish_ms']:.1f}; without per-part syncs {g['unsynced_wave_ms']:.1f} ms; an iteration "
+        f"{g['iteration_ms']:.3f} ms, a level {g['level_ms']:.4f} ms, a tail {g['tail_ms']:.4f} ms; card busy "
+        f"{g['device_busy_ms']} ms of a traced segment of {g['traced_segment_ms']:.1f} ms = "
+        f"{g['device_busy_share']} ({g['device_busy_share_of_untraced']} of an untraced segment); "
+        f"{g['sims_per_s']:,.0f} sims/s, {g['mfu']:.3%} of the bf16 peak")
     ps = out["profile_search"]
     log(f"[scripts] profile_search: {seconds['profile_search']:.1f} s (trace read in {ps['read_s']:.1f} s, "
         f"{ps['events']} events), batch {ps['batch']}, {ps['simulations']} sims, K={ps['parallel_sims']}: "
@@ -1163,13 +1192,16 @@ def scripts_phase(dev, shapes, run_dir):
         f"{mcr['import_port_s']:.2f} s, CUDA context {mcr['cuda_context_s']:.2f} s, cold nvcc build of the tower "
         f"{mcr['nvcc_build_s']:.2f} s, library load {mcr['library_load_s']:.3f} s; first / warm call: "
         + ", ".join(f"{k} {t['first_s']:.3f} / {t['warm_s']:.3f} s" for k, t in mcr["programs"].items())
-        + f"; refill generation of {mcr['generation']['games']} games first {mcr['generation']['first_s']:.2f} s, "
-        f"second {mcr['generation']['second_s']:.2f} s; launches in the child {mcr['launches']}")
+        + f"; graph captures at {mcr['slots']} rows {mcr['capture_ms']} ms; refill generation of "
+        f"{mcr['generation']['games']} games first {mcr['generation']['first_s']:.2f} s, second "
+        f"{mcr['generation']['second_s']:.2f} s, its captures by pool width {mcr['generation']['capture_ms']} ms; "
+        f"launches in the child {mcr['launches']}")
     for line in mcr["ptxas"]:
         if "registers" in line or "Compiling entry" in line:  # the full report is in chip_smoke.json
             log(f"[scripts] measure_compile ptxas: {line}")
     if (mcr["child_pid"] == os.getpid() or mcr["torch_loaded_at_start"] or not mcr["ptxas"]
-            or mcr["generation"]["finished"] != mcr["generation"]["games"]):
+            or mcr["generation"]["finished"] != mcr["generation"]["games"] or not mcr["capture_ms"]
+            or not mcr["generation"]["capture_ms"]):
         problems.append(f"measure_compile: not a cold child process, no build report or unfinished games: "
                         f"{ {k: mcr[k] for k in ('child_pid', 'torch_loaded_at_start', 'generation')} }")
     khr = out["k_head_to_head"]
@@ -1216,7 +1248,8 @@ def scripts_phase(dev, shapes, run_dir):
         if not (row["max_dv"] <= jdv + TOL_VALUE_PRIOR and row["max_dp"] <= jdp + TOL_VALUE_PRIOR):
             problems.append(f"pallas_eval_speed: the routes differ by more than the JAX script's {jdv}, {jdp} "
                             f"+ {TOL_VALUE_PRIOR}: {row}")
-    finite = [b["blocking_wave_ms"], b["unsynced_wave_ms"], b["eval_ms"], b["device_busy_share"], ps["sims_per_s"]]
+    finite = [b["blocking_wave_ms"], b["unsynced_wave_ms"], b["eval_ms"], b["device_busy_share"], ps["sims_per_s"],
+              g["unsynced_wave_ms"], g["iteration_ms"]]
     if not np.isfinite(finite).all() or not 0 < b["device_busy_share"] <= 1:
         problems.append(f"selfplay_breakdown or profile_search: {finite}")
     if problems:
@@ -1358,8 +1391,7 @@ def dp_rank(out_dir):
         games = play(generator)
         torch.cuda.synchronize()
         out[name] = {"seconds": time.perf_counter() - t0, "launches": tower.run_tower.launches,
-                     "by_width": shapes.by_width}
-        shapes.by_width = {}
+                     "by_width": shapes.drain()}
         if rank == 0:
             torch.save(type(games)(*(x.cpu() for x in games)), os.path.join(out_dir, f"{name}.pt"))
 
@@ -1461,11 +1493,10 @@ def dp_rank(out_dir):
         out["generations"].append({
             "generation": gen, "started_at": start, "seconds": time.perf_counter() - t0,
             "phases": dict(loop.timer.seconds), "launches": tower.run_tower.launches,
-            "by_width": shapes.by_width, "steps": len(loop.train_losses),
+            "by_width": shapes.drain(), "steps": len(loop.train_losses),
             "first_loss": loop.train_losses[0], "last_loss": loop.train_losses[-1],
             "replicas_equal": replicas_equal(loop.state),
         })
-        shapes.by_width = {}
     out["plain_calls"] = len(plain_calls)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
@@ -1820,6 +1851,206 @@ def supervisor_phase():
     return {"exit": code, "checkpoint": saved, "seconds": seconds}
 
 
+# [graph]: the search as CUDA graphs against its eager form (the same ops
+# dispatched one by one), with one generator seed: the bench's pool and
+# search (512 rows, K=8, 800 simulations in calls of 200, gen-161) and the
+# gating match's K=1 side at its 49 two-ply starts (64 simulations), with
+# gen-161 and with the centre heuristic the loop's match plays it with;
+# and fresh nets at 256 and 512 filters
+GRAPH_SHAPES = (
+    dict(name="bench 512x8", rows=512, parallel_sims=8, simulations=800, sims_per_call=200, evaluator="gen161"),
+    dict(name="match 49x1", rows=49, parallel_sims=1, simulations=64, sims_per_call=None, evaluator="gen161"),
+    dict(name="match 49x1 centre", rows=49, parallel_sims=1, simulations=64, sims_per_call=None,
+         evaluator="centre"),
+    # fresh nets at 256 filters (the wide kernel's cluster launch) and 512
+    # (the layer kernel, whose tensor maps hold the graph pool's addresses)
+    dict(name="wide 64x8", rows=64, parallel_sims=8, simulations=64, sims_per_call=None, evaluator="f256"),
+    dict(name="wider 64x8", rows=64, parallel_sims=8, simulations=64, sims_per_call=None, evaluator="f512"),
+)
+# the refill pool whose host syncs [graph] counts, a wave at a time
+GRAPH_SYNC_POOL = dict(slots=64, games=128, simulations=64, parallel_sims=8)
+
+
+def search_fields_differ(a, b) -> dict:
+    """Elements that differ between two ``SearchResults``, by field (the
+    tree's slabs by name); ``{}`` when they are equal bit for bit."""
+    fields = {k: (getattr(a, k), getattr(b, k)) for k in ("move", "value", "values_policy", "visit_policy",
+                                                           "root_value")}
+    fields.update({f"tree.{k}": (x, y) for k, x, y in zip(a.tree._fields, a.tree, b.tree)})
+    return {k: int((x != y).sum()) for k, (x, y) in fields.items() if not (x.shape == y.shape and bool((x == y).all()))}
+
+
+def search_max_diff(a, b) -> float:
+    """The largest |difference| over the floating fields of two results."""
+    return max(float((x.float() - y.float()).abs().max()) for x, y in (
+        (a.value, b.value), (a.values_policy, b.values_policy), (a.visit_policy, b.visit_policy),
+        (a.root_value, b.root_value), (a.tree.stats, b.tree.stats), (a.tree.prior, b.tree.prior)))
+
+
+def graph_phase(net, dev):
+    """[graph]: at each of ``GRAPH_SHAPES``, the eager search twice (does it
+    repeat itself?), then the graphed search twice with the same generator
+    seed: the first call warms and captures the two graphs of an iteration,
+    the second replays them under ``torch.cuda.set_sync_debug_mode
+    ("error")``, which raises on any operation that waits for the card.
+    The graphed search must equal the eager one bit for bit in moves,
+    policies, values and every tree slab (or, if the eager form does not
+    repeat itself, stay within its own spread), and its tower launches,
+    counted at replay, must equal the eager call's. A replayed search of
+    the bench shape at 64 simulations is traced for the tower kernel's
+    time inside the graph. Then a refill pool
+    (``GRAPH_SYNC_POOL``) plays twice with one play function, the second
+    time under the ``"warn"`` mode: its host syncs are counted by the line
+    that made them."""
+    import warnings
+
+    import torch
+
+    from connect4_tpu_torch.config import MCTSConfig, NetConfig
+    from connect4_tpu_torch.env.convert import stack_boards
+    from connect4_tpu_torch.env.host_board import enumerate_start_positions
+    from connect4_tpu_torch.eval.evaluators import centre_evaluator_batched, make_net_evaluator
+    from connect4_tpu_torch.mcts.batched import Search
+    from connect4_tpu_torch.models import tower
+    from connect4_tpu_torch.models.net import init_net
+    from connect4_tpu_torch.scripts._common import trace_events
+    from connect4_tpu_torch.training.self_play import make_refill_play_fn
+    from connect4_tpu_torch.utils import make_generator, trace
+
+    evaluators = {"gen161": make_net_evaluator(net), "centre": centre_evaluator_batched}
+    for f, widths in ((256, WIDE_NET), (512, WIDER_NET)):
+        fresh = init_net(NetConfig(**widths), torch.Generator().manual_seed(0), device=dev)
+        evaluators[f"f{f}"] = make_net_evaluator(fresh)
+    out = {}
+    for shape in GRAPH_SHAPES:
+        cfg = MCTSConfig(simulations=shape["simulations"], parallel_sims=shape["parallel_sims"],
+                         root_dirichlet_alpha=0.3, root_exploration_fraction=0.25, num_sampling_moves=6)
+        if shape["rows"] == 49:
+            roots = stack_boards(enumerate_start_positions(2), device=dev)
+        else:
+            roots = random_positions(shape["rows"], make_generator(7, dev), dev)
+        if roots.age.shape[0] != shape["rows"]:
+            fail(f"[graph] {shape['name']}: {roots.age.shape[0]} roots")
+        active = roots.result == 0
+        iterations = shape["simulations"] // shape["parallel_sims"]
+
+        def run(search, sync_mode=None):
+            generator = make_generator(11, dev)
+            torch.cuda.synchronize()
+            before = tower.run_tower.launches
+            t0 = time.perf_counter()
+            if sync_mode:
+                torch.cuda.set_sync_debug_mode(sync_mode)
+            try:
+                res = search(roots, generator, active)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0, tower.run_tower.launches - before
+
+        evaluator = evaluators[shape["evaluator"]]
+        eager = Search(evaluator, cfg, shape["sims_per_call"], graphs=False)
+        e1, e1_s, e_launches = run(eager)
+        e2, e2_s, _ = run(eager)
+        graphed = Search(evaluator, cfg, shape["sims_per_call"])
+        g1, g1_s, g1_launches = run(graphed)  # the warm-up and the captures
+        g2, g2_s, g_launches = run(graphed, "error")  # replays only
+        (ws,) = graphed.workspaces.values()
+        eager_repeats = not search_fields_differ(e1, e2)
+        differ = {k: search_fields_differ(e1, g) for k, g in (("first", g1), ("replayed", g2))}
+        spread = search_max_diff(e1, e2)
+        r = {
+            **shape, "eager_repeats": eager_repeats, "eager_spread": spread,
+            "differ_first": differ["first"], "differ_replayed": differ["replayed"],
+            "max_diff_replayed": search_max_diff(e1, g2),
+            "eager_s": [e1_s, e2_s], "graphed_first_s": g1_s, "graphed_s": g2_s,
+            "eager_iteration_ms": e2_s / iterations * 1e3, "graphed_iteration_ms": g2_s / iterations * 1e3,
+            "capture_ms": dict(ws.graphs.capture_ms), "replays": ws.graphs.replays,
+            "tower_launches": {"eager": e_launches, "graphed_first": g1_launches, "graphed": g_launches},
+        }
+        out[shape["name"]] = r
+        log(f"[graph] {shape['name']} ({shape['evaluator']}, {shape['simulations']} sims, K={shape['parallel_sims']}, "
+            f"{int(active.sum())} live roots): eager repeats itself {eager_repeats} (spread {spread:.3g}); graphed "
+            f"against eager: first call differs in {differ['first'] or 'nothing'}, replayed call (sync debug "
+            f"mode error) differs in {differ['replayed'] or 'nothing'}; a search eager {e1_s * 1e3:.1f} / "
+            f"{e2_s * 1e3:.1f} ms, graphed first {g1_s * 1e3:.1f} ms, replayed {g2_s * 1e3:.1f} ms; an "
+            f"iteration eager {r['eager_iteration_ms']:.3f} ms, graphed {r['graphed_iteration_ms']:.3f} ms; "
+            f"captures {', '.join(f'{k} {v:.1f} ms' for k, v in r['capture_ms'].items())}; graph replays "
+            f"{ws.graphs.replays}; tower launches eager {e_launches}, graphed {g1_launches} / {g_launches}")
+        if eager_repeats and (differ["first"] or differ["replayed"]):
+            fail(f"[graph] {shape['name']}: the graphed search differs from the eager one: {differ}")
+        if not eager_repeats and not r["max_diff_replayed"] <= spread:
+            fail(f"[graph] {shape['name']}: the graphed search differs from the eager one by "
+                 f"{r['max_diff_replayed']}, beyond the eager form's own spread {spread}")
+        if not (e_launches == g1_launches == g_launches) or set(ws.graphs.capture_ms) != {"level", "tail"}:
+            fail(f"[graph] {shape['name']}: tower launches {r['tower_launches']}, captures {r['capture_ms']}")
+
+    # the tower kernel inside the replayed graph, at the bench path's fan-out
+    # batch (512 x 8 boards): a traced 64-simulation search of the bench
+    # shape, replayed (its root forward, at 512 boards, runs eagerly)
+    shape = GRAPH_SHAPES[0]
+    cfg = MCTSConfig(simulations=64, parallel_sims=shape["parallel_sims"])
+    roots = random_positions(shape["rows"], make_generator(7, dev), dev)
+    traced = Search(evaluators["gen161"], cfg)
+    for seed in (0, 1):  # warm-up, capture
+        traced(roots, make_generator(seed, dev))
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as log_dir:
+        with trace(log_dir):
+            traced(roots, make_generator(2, dev))
+            torch.cuda.synchronize()
+        events = trace_events(log_dir)
+    tower_us = sorted(e["dur"] for e in events if e.get("cat") == "kernel" and "tower_kernel" in e["name"])
+    in_graph = tower_us[1:]  # the root forward is the shortest
+    out["tower_in_graph"] = {"boards": shape["rows"] * shape["parallel_sims"], "launches": len(in_graph),
+                             "ms": sorted(in_graph)[len(in_graph) // 2] / 1e3 if in_graph else None,
+                             "root_ms": tower_us[0] / 1e3 if tower_us else None}
+    log(f"[graph] the tower kernel in a traced replayed search of {shape['rows']} rows, K={shape['parallel_sims']}: "
+        f"{len(in_graph)} launches at {out['tower_in_graph']['boards']} boards, median {out['tower_in_graph']['ms']} "
+        f"ms (the root's eager launch at {shape['rows']} boards {out['tower_in_graph']['root_ms']} ms)")
+    if len(in_graph) != cfg.simulations // cfg.parallel_sims:
+        fail(f"[graph] the trace holds {len(tower_us)} tower kernels, not {1 + cfg.simulations // cfg.parallel_sims}")
+
+    # the sync-free sampling draws what torch.multinomial draws
+    probs = torch.rand((512, 7), generator=make_generator(3, dev), device=dev)
+    a = torch.multinomial(probs, 1, generator=make_generator(5, dev))[:, 0]
+    q = torch.empty_like(probs).exponential_(1, generator=make_generator(5, dev))
+    sampling_equal = bool((a == torch.argmax(probs / q, dim=-1)).all())
+    log(f"[graph] opening samples: the search's sync-free draw equals torch.multinomial's: {sampling_equal}")
+    if not sampling_equal:
+        fail("[graph] the search's sampling differs from torch.multinomial on the card")
+
+    # the host syncs of a refill pool's waves, by the line that made them
+    P = GRAPH_SYNC_POOL
+    cfg = MCTSConfig(simulations=P["simulations"], parallel_sims=P["parallel_sims"], root_dirichlet_alpha=0.3,
+                     root_exploration_fraction=0.25, num_sampling_moves=6)
+    play = make_refill_play_fn(evaluators["gen161"], cfg, P["slots"], P["games"], device=dev)
+    play(make_generator(1, dev))  # the warm-up and the captures
+    waves = []
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            games = play(make_generator(2, dev), progress=lambda w, n: waves.append(n))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            syncs[where] = syncs.get(where, 0) + 1
+    n_syncs = sum(syncs.values())
+    finished = int((games.result != 0).sum())
+    log(f"[graph] refill pool of {P['slots']} slots, {P['games']} games, {P['simulations']} sims, K="
+        f"{P['parallel_sims']}: {len(waves)} waves, {n_syncs} host syncs ({n_syncs / max(len(waves), 1):.2f} a "
+        f"wave) by line {syncs}; {finished} games finished")
+    if finished != P["games"]:
+        fail(f"[graph] the refill pool finished {finished} of {P['games']} games")
+    out["refill_syncs"] = {**P, "waves": len(waves), "syncs": syncs}
+    return out
+
+
 # [entry]: the port's entry() forward on the card against the CPU, on the
 # example planes and on ENTRY_POSITIONS legal positions, held to phase 6's
 # float32 limit: IEEE float32 on both (no TF32), summed in different orders
@@ -2049,6 +2280,10 @@ def main() -> int:
     log(f"[check] refill self-play 20 games, card vs CPU: records equal {same}, |policy| max {pd:.3g}")
     if not same or pd > 1e-5:
         fail("refill self-play on the card differs from the CPU")
+    t0 = time.perf_counter()
+    report["graph"] = graph_phase(net, dev)
+    report["graph"]["seconds"] = time.perf_counter() - t0
+    log(f"[graph] {report['graph']['seconds']:.1f} s")
 
     # --- 5. the self-play path -------------------------------------------------
     search_cfg = MCTSConfig(

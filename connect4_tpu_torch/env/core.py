@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from connect4_tpu_torch.types import AREA, DRAW, HEIGHT, ONGOING, RESULT_VALUE, WIDTH
+from connect4_tpu_torch.types import AREA, DRAW, HEIGHT, O_WIN, ONGOING, RESULT_VALUE, WIDTH, X_WIN
 from connect4_tpu_torch.utils import DeviceLike, resolve_device
 
 
@@ -160,6 +160,12 @@ def symmetrical(state: BoardState) -> torch.Tensor:
 
 
 def result_value(result_code: torch.Tensor) -> torch.Tensor:
-    """float32[...] absolute value of a *terminal* result code."""
-    table = torch.as_tensor(RESULT_VALUE, device=result_code.device)
-    return table[result_code.long()]
+    """float32[...] absolute value of a *terminal* result code
+    (``RESULT_VALUE``), from constants in the ops rather than a table
+    copied from the host: the search calls this inside a CUDA graph, which
+    cannot hold a copy from pageable host memory."""
+    code = result_code.long()
+    v = torch.full(code.shape, float(RESULT_VALUE[ONGOING]), dtype=torch.float32, device=code.device)
+    for c in (O_WIN, X_WIN, DRAW):
+        v = torch.where(code == c, float(RESULT_VALUE[c]), v)
+    return v

@@ -17,6 +17,10 @@ sequential reference search (``mcts.host``) and ``eval.grid_search``.
   fused one (every layer in one launch) for a net of up to 256 filters,
   the layer kernel (one launch a conv) above, at any width. On a CPU state
   it is the tower's plain version at every width.
+
+On a CUDA state the search captures its evaluator into CUDA graphs
+(``mcts.batched.Search``), so a batched evaluator reads nothing back to
+the host and copies nothing from it: every constant is made on the device.
 """
 
 from __future__ import annotations
@@ -59,8 +63,19 @@ def centre_evaluator_host(board: HostBoard) -> Tuple[float, np.ndarray]:
     return centre_value_host(board), UNIFORM_PRIOR.copy()
 
 
+def _centre_grid(device) -> torch.Tensor:
+    """``CENTRE_GRID`` made on ``device`` by tensor ops: a search captured
+    into a CUDA graph evaluates with it, and a graph cannot hold a copy
+    from pageable host memory."""
+    col = torch.arange(WIDTH, device=device)
+    row = torch.arange(HEIGHT, device=device)
+    col_w = torch.minimum(col, WIDTH - 1 - col)
+    row_w = torch.minimum(row, HEIGHT - 1 - row)
+    return (row_w[:, None] + col_w[None, :]).float()
+
+
 def centre_evaluator_batched(state: BoardState) -> Tuple[torch.Tensor, torch.Tensor]:
-    grid = torch.as_tensor(CENTRE_GRID, device=state.device)
+    grid = _centre_grid(state.device)
     o = state.pieces[..., 0, :, :].float()
     x = state.pieces[..., 1, :, :].float()
     diff = (o * grid).sum(dim=(-2, -1)) - (x * grid).sum(dim=(-2, -1))

@@ -22,15 +22,25 @@ Where the JAX code differs in kind, the port does this:
   other gather index is a node index below ``capacity`` by construction.
   ``SearchResults.tree`` is the slab without that column.
 - **In place.** JAX arrays are immutable; here each simulation updates the
-  tree slabs in place (every read of a slab happens before the write that
-  would change it, as in the JAX program order).
-- **Loops.** ``lax.while_loop`` over the descent becomes a Python loop that
-  reads ``descending.any()`` each step (one host sync per tree level);
-  ``fori_loop`` over simulations becomes a Python loop.
+  tree slabs and the descent's buffers in place (every read of a slab
+  happens before the write that would change it, as in the JAX program
+  order).
+- **Loops.** ``lax.while_loop`` over the descent becomes a loop over a
+  number of levels that the host knows, ``min(t - 1, PATH_MAX - 2)`` in
+  iteration t (see ``Search``): levels past a row's leaf change nothing,
+  so nothing is read back from the card inside a search iteration.
+  ``fori_loop`` over simulations becomes a Python loop over iterations.
+- **Jit.** The jitted device program becomes CUDA graphs: on a CUDA state
+  one level of the descent and the rest of an iteration are captured once
+  a shape (``Search``, ``Workspace``) and replayed; the tree lives in a
+  workspace that every search of the shape resets in place. On the CPU,
+  or with ``graphs=False`` (the counterpart of ``jax.disable_jit``), the
+  same ops run eagerly.
 - **Random numbers** come from one ``torch.Generator`` threaded through
-  the search: Dirichlet noise from ``torch._standard_gamma``, opening
-  sampling from ``torch.multinomial``. They are not JAX's bits, so the
-  tests compare searches bit for bit with noise and sampling off.
+  the search, outside the graphs: Dirichlet noise from
+  ``torch._standard_gamma``, opening samples as ``torch.multinomial``
+  draws them. They are not JAX's bits, so the tests compare searches bit
+  for bit with noise and sampling off.
 
 Memory layout per game (N = ``MCTSConfig.tree_capacity()``): child slots
 are allocated seven at a time, so a node's children occupy the contiguous
@@ -40,6 +50,7 @@ child is its offset in the block.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -47,12 +58,14 @@ import torch
 from connect4_tpu_torch.config import MCTSConfig
 from connect4_tpu_torch.env.core import (
     BoardState,
+    initial_state,
     legal_moves,
     place_stone,
     result_value,
     step,
 )
 from connect4_tpu_torch.eval.evaluators import BatchedEvaluator
+from connect4_tpu_torch.models import tower
 from connect4_tpu_torch.types import HEIGHT, ONGOING, WIDTH
 
 NEG_INF = float("-inf")
@@ -120,6 +133,13 @@ def _empty_tree(batch: int, capacity: int, device) -> TreeArrays:
         evaluated=torch.zeros((batch, n), dtype=torch.bool, device=device),
         next_free=torch.ones((batch,), dtype=torch.int32, device=device),  # slot 0 is the root
     )
+
+
+def _scalar(value, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-d tensor made on ``like``'s device, for an indexed
+    write: a Python scalar there becomes a copy from host memory, which a
+    CUDA graph cannot hold."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def _mask_normalise(prior: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -239,41 +259,85 @@ def _expand_metadata(board: BoardState) -> Tuple[torch.Tensor, torch.Tensor]:
     return child.result != ONGOING, result_value(child.result)
 
 
-def _descend(tree, rows, root_state, active, config, capacity, k):
-    """Walk every active game from the root to a childless node, recording
-    the path (column i holds the node at depth i; ``capacity`` elsewhere).
-    Returns (leaf, leaf board, path, depth)."""
-    batch = rows.shape[0]
-    node = torch.zeros(batch, dtype=torch.long, device=rows.device)
-    board = root_state
-    descending = active & (tree.children_base[:, 0] >= 0)
-    path = torch.full((batch, PATH_MAX), capacity, dtype=torch.long, device=rows.device)
-    path[:, 0] = torch.where(active, 0, capacity)
-    depth = torch.zeros(batch, dtype=torch.long, device=rows.device)
-    i = 0
-    while bool(descending.any()):
-        valid = _descend_valid(board)
-        scores = _node_scores(tree, rows, node, board, config, valid, capacity, k)
-        move = _argmax_prefer_large(scores)
-        child = tree.children_base[rows, node].long() + move
-        board = _light_step(board, move, descending)
-        node = torch.where(descending, child, node)
-        path[:, i + 1] = torch.where(descending, node, capacity)
-        depth += descending.long()
-        descending = descending & (tree.children_base[rows, node] >= 0)
-        i += 1
-    return node, board, path, depth
+class Descent(NamedTuple):
+    """One descent of every game from its root, updated in place level by
+    level (a CUDA graph replays each level on these very buffers): column i
+    of ``path`` holds the node at depth i of a row's walk, ``capacity``
+    elsewhere."""
+
+    node: torch.Tensor  # int64[B] — where each row stands
+    board: BoardState  # the board at ``node``
+    descending: torch.Tensor  # bool[B] — rows still walking
+    path: torch.Tensor  # int64[B, PATH_MAX]
+    depth: torch.Tensor  # int64[B]
+    level: torch.Tensor  # int64[1] — levels walked
+
+    @classmethod
+    def empty(cls, batch: int, capacity: int, device) -> "Descent":
+        return cls(
+            node=torch.zeros((batch,), dtype=torch.long, device=device),
+            board=initial_state((batch,), device=device),
+            descending=torch.zeros((batch,), dtype=torch.bool, device=device),
+            path=torch.full((batch, PATH_MAX), capacity, dtype=torch.long, device=device),
+            depth=torch.zeros((batch,), dtype=torch.long, device=device),
+            level=torch.zeros((1,), dtype=torch.long, device=device),
+        )
 
 
-def _expand(tree, rows, leaf, leaf_board, need_alloc, capacity) -> TreeArrays:
+def _descent_start(d: Descent, tree: TreeArrays, root_state: BoardState, active: torch.Tensor,
+                   capacity: int) -> None:
+    """Put every game of ``d`` at its root, in place."""
+    d.node.zero_()
+    for dst, src in zip(d.board, root_state):
+        dst.copy_(src)
+    d.descending.copy_(active & (tree.children_base[:, 0] >= 0))
+    d.path.fill_(capacity)
+    d.path[:, 0] = torch.where(active, 0, capacity)
+    d.depth.zero_()
+    d.level.zero_()
+
+
+def _descend_level(d: Descent, tree: TreeArrays, rows, config, capacity, k) -> None:
+    """One level of the descent, in place: each row still descending moves
+    to its best child (with K walkers' constant overlay where ``k`` > 0)
+    and stops there if that child has no children. A level where no row
+    descends changes nothing, so a descent may run more levels than the
+    tree is deep."""
+    valid = _descend_valid(d.board)
+    scores = _node_scores(tree, rows, d.node, d.board, config, valid, capacity, k)
+    move = _argmax_prefer_large(scores)
+    child = tree.children_base[rows, d.node].long() + move
+    board = _light_step(d.board, move, d.descending)
+    for dst, src in zip(d.board[:3], board[:3]):  # result is left as it was
+        dst.copy_(src)
+    node = torch.where(d.descending, child, d.node)
+    d.node.copy_(node)
+    d.path.scatter_(1, (d.level + 1).expand(rows.shape[0], 1),
+                    torch.where(d.descending, node, capacity)[:, None])
+    d.depth.add_(d.descending)
+    d.descending.logical_and_(tree.children_base[rows, node] >= 0)
+    d.level.add_(1)
+
+
+def _descend(tree, rows, root_state, active, config, capacity, k) -> Descent:
+    """Walk every active game from the root of ``tree`` to a childless
+    node, on fresh buffers, in ``PATH_MAX - 2`` levels: the most any
+    descent needs, since a board has at most 42 plies left."""
+    d = Descent.empty(rows.shape[0], capacity, rows.device)
+    _descent_start(d, tree, root_state, active, capacity)
+    for _ in range(PATH_MAX - 2):
+        _descend_level(d, tree, rows, config, capacity, k)
+    return d
+
+
+def _expand(tree, rows, leaf, leaf_board, need_alloc, capacity) -> None:
     """Allocate a 7-slot child block under ``leaf`` where ``need_alloc``
-    and write the children's metadata. Returns the tree with its new
-    ``next_free``; the slabs are updated in place."""
+    and write the children's metadata, in place (``next_free`` too)."""
     base = tree.next_free.clamp(max=capacity - WIDTH)
     tree.children_base[rows, torch.where(need_alloc, leaf, capacity)] = base
-    next_free = torch.where(
+    tree.next_free.copy_(torch.where(
         need_alloc, (tree.next_free + WIDTH).clamp(max=capacity), tree.next_free
-    )
+    ))
     child_term, child_tval = _expand_metadata(leaf_board)
     child_stats = torch.zeros(child_term.shape + (4,), dtype=torch.float32, device=rows.device)
     child_stats[..., _TVAL] = child_tval
@@ -282,43 +346,20 @@ def _expand(tree, rows, leaf, leaf_board, need_alloc, capacity) -> TreeArrays:
     slots = (rows[:, None], torch.where(need_alloc[:, None], slot_idx, capacity))
     tree.parent[slots] = leaf[:, None].to(torch.int32)
     tree.stats[slots] = child_stats
-    tree.evaluated[slots] = False
-    tree.children_base[slots] = -1
-    return tree._replace(next_free=next_free)
-
-
-def search(
-    eval_fn: BatchedEvaluator,
-    root_state: BoardState,
-    generator: torch.Generator,
-    config: MCTSConfig,
-    active: Optional[torch.Tensor] = None,
-) -> SearchResults:
-    """Run ``config.simulations`` PUCT simulations for every game in the
-    batch and return chosen moves plus training targets.
-
-    ``active`` masks games (finished games in lockstep self-play): inactive
-    games' tree updates are suppressed and their outputs are defined but
-    meaningless (callers must mask). ``generator`` (on the state's device)
-    supplies the Dirichlet noise and the opening-move samples."""
-    if active is None:
-        active = torch.ones(root_state.batch_shape, dtype=torch.bool, device=root_state.device)
-    tree = _root_init(eval_fn, root_state, generator, config, active)
-    tree = _run_sims(eval_fn, tree, root_state, config, active, config.simulations)
-    return _finish(tree, root_state, generator, config, legal_moves(root_state))
+    tree.evaluated[slots] = _scalar(False, tree.evaluated)
+    tree.children_base[slots] = _scalar(-1, tree.children_base)
 
 
 def _root_init(
     eval_fn: BatchedEvaluator,
+    tree: TreeArrays,
     root_state: BoardState,
     generator: torch.Generator,
     config: MCTSConfig,
-    active: torch.Tensor,
-) -> TreeArrays:
-    """Evaluate the root and mix in Dirichlet noise once."""
+) -> None:
+    """Evaluate the root of the empty ``tree`` and mix in Dirichlet noise
+    once, in place."""
     batch = root_state.age.shape[0]
-    tree = _empty_tree(batch, config.tree_capacity(), root_state.device)
-
     root_value, root_prior_raw = eval_fn(root_state)
     root_valid = legal_moves(root_state)
     root_prior = _mask_normalise(root_prior_raw, root_valid)
@@ -334,43 +375,13 @@ def _root_init(
     tree.evaluated[:, 0] = True
     tree.stats[:, 0, _VISITS] = 1.0
     tree.stats[:, 0, _VSUM] = root_value.float()
-    return tree
 
 
-def _run_sims(
-    eval_fn: BatchedEvaluator,
-    tree: TreeArrays,
-    root_state: BoardState,
-    config: MCTSConfig,
-    active: torch.Tensor,
-    n_sims: int,
-) -> TreeArrays:
-    """Advance the search by ``n_sims`` simulations, so a caller can split
-    one search into segments."""
-    kwargs = dict(
-        eval_fn=eval_fn, config=config, root_state=root_state, active=active,
-        capacity=config.tree_capacity(),
-    )
-    if config.parallel_sims > 1:
-        if n_sims % config.parallel_sims:
-            raise ValueError("simulations must be divisible by parallel_sims")
-        for _ in range(n_sims // config.parallel_sims):
-            tree = _simulate_parallel(tree, **kwargs)
-        return tree
-    for _ in range(n_sims):
-        tree = _simulate_exact(tree, **kwargs)
-    return tree
-
-
-def _simulate_exact(
-    tree: TreeArrays, *, eval_fn, config, root_state, active, capacity
-) -> TreeArrays:
-    """One simulation per game (K=1, the reference's exact semantics)."""
-    batch = root_state.age.shape[0]
-    rows = torch.arange(batch, device=root_state.device)
-
-    # --- phase 1: descend to a childless node -------------------------
-    leaf, leaf_board, path, depth = _descend(tree, rows, root_state, active, config, capacity, 0)
+def _tail_exact(tree: TreeArrays, d: Descent, rows, *, eval_fn, config, active, capacity) -> None:
+    """The rest of a K=1 iteration after the descent ``d``: expansion,
+    evaluation and backup, in place."""
+    batch = rows.shape[0]
+    leaf, leaf_board, path, depth = d.node, d.board, d.path, d.depth
 
     # --- phase 2: expand evaluated non-terminal leaves ----------------
     # (leaf_board.result is accurately ONGOING for expanding games, so the
@@ -378,7 +389,7 @@ def _simulate_exact(
     leaf_term = tree.stats[rows, leaf, _TERM] > 0.5
     need_expand = active & tree.evaluated[rows, leaf] & ~leaf_term
     base = tree.next_free.clamp(max=capacity - WIDTH).long()
-    tree = _expand(tree, rows, leaf, leaf_board, need_expand, capacity)
+    _expand(tree, rows, leaf, leaf_board, need_expand, capacity)
 
     # select one fresh child where we expanded
     scores = _node_scores(tree, rows, leaf, leaf_board, config, _descend_valid(leaf_board), capacity)
@@ -395,7 +406,7 @@ def _simulate_exact(
     store_prior = active & ~cur_term & ~tree.evaluated[rows, cur]
     safe_cur = torch.where(store_prior, cur, capacity)
     tree.prior[rows, safe_cur] = prior_masked
-    tree.evaluated[rows, safe_cur] = True
+    tree.evaluated[rows, safe_cur] = _scalar(True, tree.evaluated)
 
     # --- phase 4: backup along the recorded path ----------------------
     # every node on the root..leaf path plus (if expanded) the fresh child
@@ -408,34 +419,25 @@ def _simulate_exact(
     tree.stats.index_put_(
         (rows[:, None], path), incr[:, None, :].expand(batch, PATH_MAX, 4), accumulate=True
     )
-    return tree
 
 
-def _simulate_parallel(
-    tree: TreeArrays, *, eval_fn, config, root_state, active, capacity
-) -> TreeArrays:
-    """One iteration = K simulations per game, walker-deduplicated.
-
-    Lockstep walkers share their whole descent (they see identical scores
-    with a constant xK overlay on the path), so the descent runs once per
-    game, the leaf is expanded once, K walkers fan out over its children
+def _tail_parallel(tree: TreeArrays, d: Descent, rows, *, eval_fn, config, active, capacity) -> None:
+    """The rest of a K-walker iteration after the shared descent ``d``:
+    one expansion of the shared leaf, K walkers' fan-out over its children
     sequentially from a precomputed [B, K, 7] score table (child c's score
-    when it carries j virtual visits), the K fan-out boards are evaluated
-    in one batched forward, and the backup adds (1, value) to each fan-out
-    child and (K, sum of values) once along the shared path."""
+    when it carries j virtual visits), one batched forward of the K fan-out
+    boards, and a backup that adds (1, value) to each fan-out child and (K,
+    sum of values) once along the shared path; in place."""
     K = config.parallel_sims
-    batch = root_state.age.shape[0]
-    dev = root_state.device
-    rows = torch.arange(batch, device=dev)
-
-    # --- single descent per game (identical for all K walkers) ------------
-    leaf, leaf_board, path, _ = _descend(tree, rows, root_state, active, config, capacity, K)
+    batch = rows.shape[0]
+    dev = rows.device
+    leaf, leaf_board, path = d.node, d.board, d.path
 
     # --- single expansion of the (shared) leaf ----------------------------
     leaf_term = tree.stats[rows, leaf, _TERM] > 0.5
     expandable = active & tree.evaluated[rows, leaf] & ~leaf_term
     need_alloc = expandable & (tree.children_base[rows, leaf] < 0)
-    tree = _expand(tree, rows, leaf, leaf_board, need_alloc, capacity)
+    _expand(tree, rows, leaf, leaf_board, need_alloc, capacity)
 
     # --- K-way fan-out over the leaf's children, table-driven -------------
     cb = tree.children_base[rows, leaf].long()
@@ -475,7 +477,7 @@ def _simulate_parallel(
     store_prior = active_k & ~cur_term & ~tree.evaluated[rows[:, None], nodes]
     safe_nodes = (rows[:, None], torch.where(store_prior, nodes, capacity))
     tree.prior[safe_nodes] = prior_masked
-    tree.evaluated[safe_nodes] = True
+    tree.evaluated[safe_nodes] = _scalar(True, tree.evaluated)
 
     # --- backup: per-child adds + ONE shared-path scatter-add -------------
     zeros = torch.zeros_like(value)
@@ -492,6 +494,20 @@ def _simulate_parallel(
     tree.stats.index_put_(
         (rows[:, None], path), path_incr[:, None, :].expand(batch, PATH_MAX, 4), accumulate=True
     )
+
+
+def _simulate_parallel(
+    tree: TreeArrays, *, eval_fn, config, root_state, active, capacity
+) -> TreeArrays:
+    """One iteration = K simulations per game, walker-deduplicated, on
+    ``tree``, in place (the tests hold it to the JAX package's and to
+    ``_simulate_parallel_reference``). Lockstep walkers share their whole
+    descent (they see identical scores with a constant xK overlay on the
+    path), so the descent runs once per game and ``_tail_parallel`` does
+    the rest."""
+    rows = torch.arange(root_state.age.shape[0], device=root_state.device)
+    d = _descend(tree, rows, root_state, active, config, capacity, config.parallel_sims)
+    _tail_parallel(tree, d, rows, eval_fn=eval_fn, config=config, active=active, capacity=capacity)
     return tree
 
 
@@ -558,7 +574,7 @@ def _simulate_parallel_reference(
         leaf_term = tree.stats[rows, leaf, _TERM] > 0.5
         expandable = active_k[:, k] & tree.evaluated[rows, leaf] & ~leaf_term
         need_alloc = expandable & (tree.children_base[rows, leaf] < 0)
-        tree = _expand(tree, rows, leaf, board_k, need_alloc, capacity)
+        _expand(tree, rows, leaf, board_k, need_alloc, capacity)
         scores = _overlay_scores(
             tree, voverlay, leaf[:, None], board_k.map(lambda x: x[:, None]), config,
             (board_k.height < HEIGHT)[:, None], capacity,
@@ -638,7 +654,10 @@ def _finish(
         wsum = weights.sum(dim=-1, keepdim=True)
         probs = torch.where(wsum > 0, weights / torch.where(wsum > 0, wsum, 1.0), uniform)
         probs = torch.where(probs.sum(dim=-1, keepdim=True) > 0, probs, 1.0 / WIDTH)
-        sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        # torch.multinomial(probs, 1, generator=generator)[:, 0], which
+        # draws exactly this, but without its two host reads that check
+        # the probabilities (valid here by construction)
+        sampled = torch.argmax(probs / torch.empty_like(probs).exponential_(1, generator=generator), dim=-1)
         move = torch.where(root_state.age < config.num_sampling_moves, sampled, move)
 
     chosen_abs = torch.gather(abs_val, 1, move[:, None])[:, 0]
@@ -650,39 +669,227 @@ def _finish(
         values_policy=values_policy,
         visit_policy=visit_policy,
         root_value=root_mean,
-        tree=tree.without_dump(),
+        tree=TreeArrays(*(x.clone() for x in tree.without_dump())),
     )
 
 
-def make_search_fn(eval_fn: BatchedEvaluator, config: MCTSConfig):
-    """Close over evaluator and config: ``(state, generator[, active])``."""
+# one side stream a device for every workspace's warm-ups and captures:
+# cuBLAS keeps a workspace for each stream it has run on for the life of
+# the process, so a stream a search would hold more memory with every
+# search object
+_SIDE_STREAMS = {}
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[index] = torch.cuda.Stream(index)
+    return _SIDE_STREAMS[index]
+
+
+class _Graphs:
+    """The CUDA graphs of one workspace's iteration. ``run(name, fn)`` runs
+    ``fn`` eagerly the first time, on a side stream (the warm-up: it does
+    what the ops set up lazily, such as cuBLAS's workspace and the tower
+    kernel's build and attributes, outside any capture), captures it the
+    second time
+    and replays the capture from then on, on the current stream. The graphs
+    share one memory pool: they run one after another and pass nothing but
+    the workspace's own buffers. A failed capture raises. The tower
+    forwards a graph holds are counted at each replay
+    (``tower.count_launches``)."""
+
+    def __init__(self, device):
+        self.stream = _side_stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graph = {}
+        self.launches = {}  # name -> the tower forwards captured
+        self.capture_ms = {}  # name -> ms the capture took
+        self.replays = 0
+        self._warm = set()
+
+    def run(self, name: str, fn) -> None:
+        graph = self.graph.get(name)
+        if graph is None:
+            current = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(current)
+            if name not in self._warm:
+                with torch.cuda.stream(self.stream):
+                    fn()
+                current.wait_stream(self.stream)
+                self._warm.add(name)
+                return
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with tower.captured_launches() as log, torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                fn()
+            self.capture_ms[name] = (time.perf_counter() - t0) * 1e3
+            current.wait_stream(self.stream)
+            self.graph[name], self.launches[name] = graph, log
+        graph.replay()
+        self.replays += 1
+        tower.count_launches(self.launches[name])
+
+
+class Workspace:
+    """The buffers of one search shape, reset in place by every search of
+    that shape: the tree slabs (with the dump column), static copies of the
+    roots and of the active mask, the descent, the host's count of
+    iterations since the reset and, where the search runs graphs, the CUDA
+    graphs of an iteration (``graphs``)."""
+
+    def __init__(self, batch: int, capacity: int, device, graphs: bool):
+        self.capacity = capacity
+        self.tree = _empty_tree(batch, capacity, device)
+        self.root = initial_state((batch,), device=device)
+        self.active = torch.zeros((batch,), dtype=torch.bool, device=device)
+        self.rows = torch.arange(batch, device=device)
+        self.descent = Descent.empty(batch, capacity, device)
+        self.iteration = 0
+        self.graphs = _Graphs(device) if graphs else None
+
+    def reset(self, root_state: BoardState, active: torch.Tensor) -> None:
+        for x, fill in zip(self.tree, (-1, -1, 0.0, 0.0, False, 1)):
+            x.fill_(fill)  # _empty_tree's values; next_free 1: slot 0 is the root
+        for dst, src in zip(self.root, root_state):
+            dst.copy_(src)
+        self.active.copy_(active)
+        self.iteration = 0
+
+
+class Search:
+    """A batched search bound to an evaluator and a config:
+    ``search(root_state, generator, active=None) -> SearchResults`` runs
+    ``init``, ``simulations / sims_per_call`` calls of ``segment`` and
+    ``finish`` (the counterpart of the JAX package's jitted ``run`` and of
+    its chunked ``init``, ``segment`` and ``finish``).
+
+    Iteration t of a search (counted from 1 since ``init``) descends
+    ``min(t - 1, PATH_MAX - 2)`` levels, a count the host knows: an
+    iteration allocates at most one child block a game, so before iteration
+    t no expanded node is deeper than t - 1, and no board has more than 42
+    plies left; the levels past a row's leaf change nothing. So nothing in
+    an iteration reads the card from the host. (A ``max_nodes`` below
+    ``tree_capacity()`` can exhaust the slab; blocks allocated after that
+    reuse the last one and the bound no longer holds.)
+
+    ``active`` masks games (finished games in lockstep self-play): inactive
+    games' tree updates are suppressed and their outputs are defined but
+    meaningless (callers must mask). ``generator`` (on the state's device)
+    supplies the Dirichlet noise and the opening-move samples; it is drawn
+    from by ``init`` and ``finish`` only, which run eagerly.
+
+    Each (device, batch) gets a ``Workspace`` at first use, kept in
+    ``workspaces`` for the life of this object, so a new search object
+    frees its predecessor's. With ``graphs`` (the default) a CUDA state's
+    iteration runs from two CUDA graphs, each captured at its second call
+    in the first search of the shape (the first call runs eagerly as its
+    warm-up): one level of the descent, replayed level by level, and the
+    rest of the iteration with the next descent's start, replayed once. ``graphs=False``, which only a
+    caller chooses, runs the same ops eagerly; so does a CPU state. The two
+    forms compute the same ops in the same order, so the same results."""
+
+    def __init__(self, eval_fn: BatchedEvaluator, config: MCTSConfig,
+                 sims_per_call: Optional[int] = None, graphs: bool = True):
+        self.eval_fn, self.config, self.graphs = eval_fn, config, graphs
+        self.sims_per_call = sims_per_call or config.simulations
+        if config.simulations % self.sims_per_call:
+            raise ValueError("simulations must be divisible by sims_per_call")
+        self.workspaces = {}
 
     @torch.no_grad()
-    def run(root_state: BoardState, generator: torch.Generator, active=None):
-        return search(eval_fn, root_state, generator, config, active)
+    def __call__(self, root_state: BoardState, generator: torch.Generator, active=None) -> SearchResults:
+        ws = self.init(root_state, generator, active)
+        for _ in range(self.config.simulations // self.sims_per_call):
+            self.segment(ws)
+        return self.finish(ws, generator)
 
-    return run
+    @torch.no_grad()
+    def init(self, root_state: BoardState, generator: torch.Generator, active=None) -> Workspace:
+        """Reset the shape's workspace to these roots and evaluate them."""
+        if active is None:
+            active = torch.ones(root_state.batch_shape, dtype=torch.bool, device=root_state.device)
+        key = (root_state.device, root_state.age.shape[0])
+        ws = self.workspaces.get(key)
+        if ws is None:
+            ws = self.workspaces[key] = Workspace(
+                key[1], self.config.tree_capacity(), key[0], self.graphs and key[0].type == "cuda")
+        ws.reset(root_state, active)
+        _root_init(self.eval_fn, ws.tree, ws.root, generator, self.config)
+        _descent_start(ws.descent, ws.tree, ws.root, ws.active, ws.capacity)
+        return ws
+
+    @torch.no_grad()
+    def segment(self, ws: Workspace) -> None:
+        """Advance the search by ``sims_per_call`` simulations."""
+        K = self.config.parallel_sims
+        if K > 1 and self.sims_per_call % K:
+            raise ValueError("simulations must be divisible by parallel_sims")
+        for _ in range(self.sims_per_call // K):
+            ws.iteration += 1
+            for _ in range(min(ws.iteration - 1, PATH_MAX - 2)):
+                self.level(ws)
+            self.tail(ws)
+
+    def level(self, ws: Workspace) -> None:
+        """One level of the descent."""
+        K = self.config.parallel_sims
+        self._run(ws, "level", lambda: _descend_level(
+            ws.descent, ws.tree, ws.rows, self.config, ws.capacity, K if K > 1 else 0))
+
+    def tail(self, ws: Workspace) -> None:
+        """The rest of an iteration after its descent, then the next
+        descent's start."""
+        tail = _tail_parallel if self.config.parallel_sims > 1 else _tail_exact
+
+        def tail_and_start():
+            tail(ws.tree, ws.descent, ws.rows, eval_fn=self.eval_fn, config=self.config, active=ws.active,
+                 capacity=ws.capacity)
+            _descent_start(ws.descent, ws.tree, ws.root, ws.active, ws.capacity)
+
+        self._run(ws, "tail", tail_and_start)
+
+    @staticmethod
+    def _run(ws: Workspace, name: str, fn) -> None:
+        if ws.graphs is None:
+            fn()
+        else:
+            ws.graphs.run(name, fn)
+
+    @torch.no_grad()
+    def finish(self, ws: Workspace, generator: torch.Generator) -> SearchResults:
+        """Moves and training targets; the tree is copied out of the
+        workspace, which the next search of the shape overwrites."""
+        return _finish(ws.tree, ws.root, generator, self.config, legal_moves(ws.root))
+
+
+def search(
+    eval_fn: BatchedEvaluator,
+    root_state: BoardState,
+    generator: torch.Generator,
+    config: MCTSConfig,
+    active: Optional[torch.Tensor] = None,
+) -> SearchResults:
+    """Run ``config.simulations`` PUCT simulations for every game in the
+    batch and return chosen moves plus training targets: one call of a
+    fresh ``Search``."""
+    return Search(eval_fn, config)(root_state, generator, active)
+
+
+def make_search_fn(eval_fn: BatchedEvaluator, config: MCTSConfig, graphs: bool = True) -> Search:
+    """Close over evaluator and config: ``(state, generator[, active])``.
+    ``graphs=False`` runs a CUDA state's iterations eagerly (see
+    ``Search``)."""
+    return Search(eval_fn, config, graphs=graphs)
 
 
 def make_chunked_search_fn(
-    eval_fn: BatchedEvaluator, config: MCTSConfig, sims_per_call: int
-):
+    eval_fn: BatchedEvaluator, config: MCTSConfig, sims_per_call: int, graphs: bool = True
+) -> Search:
     """A search split into a root init, ``simulations / sims_per_call``
     segments and a finish, with the tree carried between them; the same
     ops in the same order as ``make_search_fn``, so the same results. (On
     the TPU this kept each device call short; here it keeps the same
     contract for callers that pass ``sims_per_call``.)"""
-    if config.simulations % sims_per_call:
-        raise ValueError("simulations must be divisible by sims_per_call")
-    n_segments = config.simulations // sims_per_call
-
-    @torch.no_grad()
-    def run(root_state: BoardState, generator: torch.Generator, active=None) -> SearchResults:
-        if active is None:
-            active = torch.ones(root_state.batch_shape, dtype=torch.bool, device=root_state.device)
-        tree = _root_init(eval_fn, root_state, generator, config, active)
-        for _ in range(n_segments):
-            tree = _run_sims(eval_fn, tree, root_state, config, active, sims_per_call)
-        return _finish(tree, root_state, generator, config, legal_moves(root_state))
-
-    return run
+    return Search(eval_fn, config, sims_per_call, graphs)

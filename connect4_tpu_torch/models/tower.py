@@ -10,7 +10,10 @@ policy heads on its output; ``forward`` chains them.
 ``run_tower`` launches the CUDA kernel of ``csrc/tower.cu`` for a CUDA
 tensor, and takes the plain version ``tower_plain`` only for a CPU tensor.
 It never falls back: a CUDA input that the kernel does not take raises.
-``run_tower.launches`` counts kernel launches.
+``run_tower.launches`` counts kernel launches, ``run_tower.by_shape`` the
+same by packed width and batch. A forward captured into a CUDA graph
+(``captured_launches``) is counted where the graph replays it
+(``count_launches``), not where it is captured.
 
 The kernel (see the header of ``csrc/tower.cu``) keeps a tile of 3 boards
 resident in shared memory across all layers and runs every conv as 9
@@ -59,6 +62,7 @@ epilogue does; tanh and softmax run in float32.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 from typing import Dict, Tuple
@@ -484,10 +488,11 @@ def _tower_cuda(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) 
     _check(packed["res_b"], "res_b", _BF16, (n_layers, f), dev)
     out = torch.empty((rows, f), dtype=_BF16, device=dev)
     lib = _library()
+    layer_launches = 0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if layered:
-            _tower_layers(lib, packed, x2d, out, stream)
+            layer_launches = _tower_layers(lib, packed, x2d, out, stream)
         else:
             args = (
                 x2d.data_ptr(), packed["conv1_img"].data_ptr(), packed["conv1_b"].data_ptr(),
@@ -500,15 +505,16 @@ def _tower_cuda(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) 
                 err = lib.c4_tower_forward_chain(*args, CHAINS.index(chain), stream)
             if err != 0:
                 raise RuntimeError(f"tower kernel launch failed with cudaError {err} (F {f}, chain {chain})")
-    run_tower.launches += 1
+    _count(f, rows // AREA, layer_launches)
     return out
 
 
-def _tower_layers(lib, packed: Dict[str, torch.Tensor], x2d: torch.Tensor, out: torch.Tensor, stream) -> None:
+def _tower_layers(lib, packed: Dict[str, torch.Tensor], x2d: torch.Tensor, out: torch.Tensor, stream) -> int:
     """The tower at a layer width into ``out``: one launch of the layer
-    kernel a conv, on ``stream``. ``out`` holds a residual block's input
-    and then, the skip added in place, its output; ``y`` (allocated here,
-    on the caller's stream) the block's middle layer."""
+    kernel a conv, on ``stream``; returns the number of launches. ``out``
+    holds a residual block's input and then, the skip added in place, its
+    output; ``y`` (allocated here, on the caller's stream) the block's
+    middle layer."""
     rows, cin = x2d.shape
     f = out.shape[1]
     y = torch.empty_like(out)
@@ -519,13 +525,13 @@ def _tower_layers(lib, packed: Dict[str, torch.Tensor], x2d: torch.Tensor, out: 
             dst.data_ptr(), rows // AREA, cin if first else f, f, int(first), stream)
         if err != 0:
             raise RuntimeError(f"tower layer kernel launch failed with cudaError {err} (F {f})")
-        run_tower.layer_launches += 1
 
     res_img, res_b = packed["res_img"], packed["res_b"]
     layer(True, x2d, packed["conv1_img"], packed["conv1_b"], None, out)
     for i in range(res_img.shape[0] // 2):
         layer(False, out, res_img[2 * i], res_b[2 * i], None, y)
         layer(False, y, res_img[2 * i + 1], res_b[2 * i + 1], out, out)
+    return 1 + res_img.shape[0]
 
 
 def run_tower(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) -> torch.Tensor:
@@ -535,7 +541,8 @@ def run_tower(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) ->
     version for a CPU tensor; anything else raises. ``chain`` (one of
     ``CHAINS``) overrides the shipped chain length of the fused kernel, for
     measurements. ``run_tower.launches`` counts tower forwards on the card,
-    ``run_tower.layer_launches`` the layer kernel's launches among them."""
+    ``run_tower.layer_launches`` the layer kernel's launches among them,
+    ``run_tower.by_shape`` the forwards as ``{packed width: {boards: n}}``."""
     if x2d.device.type == "cuda":
         return _tower_cuda(packed, x2d, chain)
     if x2d.device.type == "cpu":
@@ -545,6 +552,44 @@ def run_tower(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) ->
 
 run_tower.launches = 0
 run_tower.layer_launches = 0
+run_tower.by_shape = {}
+
+# the launch logs of the CUDA graphs being captured, innermost last
+_CAPTURING = []
+
+
+def _count(f: int, boards: int, layer_launches: int) -> None:
+    """Count one tower forward on the card at packed width ``f`` (with the
+    layer kernel's launches in it), or, while a CUDA graph is captured,
+    log it for the graph's replays instead: a captured launch runs only
+    when the graph is replayed."""
+    if _CAPTURING:
+        _CAPTURING[-1].append((f, boards, layer_launches))
+        return
+    run_tower.launches += 1
+    run_tower.layer_launches += layer_launches
+    per = run_tower.by_shape.setdefault(f, {})
+    per[boards] = per.get(boards, 0) + 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around the capture of a CUDA graph: yields the list that logs the
+    tower forwards captured, ``[(packed width, boards, layer launches)]``,
+    which are not counted; ``count_launches`` counts them at each replay."""
+    log = []
+    _CAPTURING.append(log)
+    try:
+        yield log
+    finally:
+        _CAPTURING.pop()
+
+
+def count_launches(log) -> None:
+    """Count the forwards of ``log`` (from ``captured_launches``), once for
+    a replay of the graph they were captured into."""
+    for f, boards, layer_launches in log:
+        _count(f, boards, layer_launches)
 
 
 # ---------------------------------------------------------------------------

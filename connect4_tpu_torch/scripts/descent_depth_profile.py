@@ -5,14 +5,16 @@ which measures the two quantities that decide whether age-banded search
 calls could cut the self-play tree walk:
 
 1. **Descent depth by board age.** A search iteration descends every row
-   until the deepest one reaches a leaf (here the descent loop syncs once a
-   level), so in a mixed-age pool every row pays for the young rows' depth.
+   until the deepest one reaches a leaf (here every row walks the
+   ``min(t - 1, 42)`` levels of iteration t that bound every row's
+   depth), so in a mixed-age pool every row pays for the young rows' depth.
    For boards still in play after 2, 8, ... 32 random plies: the depth the
    descent reaches (mean / p95 / max) after the first and after the last
    ``sims_per_call`` segment.
 2. **Segment cost by rows.** Splitting one search call into age bands pays
    only if a segment's cost shrinks with its rows: one segment's time on a
-   mixed-age pool of 32 ... 512 rows.
+   mixed-age pool of 32 ... 512 rows, in the form the main path runs (on
+   the card, each iteration replayed from CUDA graphs).
 
 The net is the packaged gen-161 (``--random-net``: a fresh F=64 / fc 6 /
 res 6 bf16 net); boards come from seeded ``torch.Generator`` playouts.
@@ -30,7 +32,7 @@ import torch
 
 from connect4_tpu_torch.config import MCTSConfig
 from connect4_tpu_torch.env.core import BoardState
-from connect4_tpu_torch.mcts.batched import TreeArrays, _descend, _root_init, _run_sims
+from connect4_tpu_torch.mcts.batched import Search, TreeArrays, _descend
 from connect4_tpu_torch.scripts import _common
 from connect4_tpu_torch.utils import make_generator, resolve_device
 
@@ -39,11 +41,12 @@ POOL_ROWS = (32, 64, 128, 256, 512)
 
 
 def measure_depth(tree: TreeArrays, state: BoardState, config: MCTSConfig) -> torch.Tensor:
-    """The depth each row's descent reaches in ``tree`` (the search's own
-    descent, K walkers' constant overlay included), as ``[rows]``."""
+    """The depth each row's descent reaches in ``tree`` (a workspace's
+    slabs, dump column included: the search's own descent, K walkers'
+    constant overlay included), as ``[rows]``."""
     rows = torch.arange(state.age.shape[0], device=state.device)
     active = torch.ones_like(rows, dtype=torch.bool)
-    return _descend(tree, rows, state, active, config, config.tree_capacity(), config.parallel_sims)[3]
+    return _descend(tree, rows, state, active, config, config.tree_capacity(), config.parallel_sims).depth
 
 
 def _stats(depth: torch.Tensor):
@@ -57,15 +60,15 @@ def depth_by_age(eval_fn, boards: Dict[int, BoardState], config: MCTSConfig, sim
     and after the last segment of one search (root noise from a generator
     seeded with the ply)."""
     n_segments = config.simulations // sims_per_call
+    search = Search(eval_fn, config, sims_per_call)
     rows = []
     for ply, st in boards.items():
-        active = torch.ones(st.age.shape, dtype=torch.bool, device=st.device)
-        tree = _root_init(eval_fn, st, make_generator(ply, st.device), config, active)
+        ws = search.init(st, make_generator(ply, st.device))
         depths = []
         for s in range(n_segments):
-            tree = _run_sims(eval_fn, tree, st, config, active, sims_per_call)
+            search.segment(ws)
             if s == 0 or s == n_segments - 1:
-                depths.append(_stats(measure_depth(tree, st, config)))
+                depths.append(_stats(measure_depth(ws.tree, st, config)))
         rows.append({"ply": ply, "rows": int(st.age.shape[0]), "first": depths[0], "final": depths[-1]})
     return rows
 
@@ -74,21 +77,20 @@ def depth_by_age(eval_fn, boards: Dict[int, BoardState], config: MCTSConfig, sim
 def segment_cost_by_rows(eval_fn, pools: Dict[int, BoardState], config: MCTSConfig, sims_per_call: int,
                          reps: int = 3) -> list:
     """For each ``rows -> pool``: one segment's milliseconds on a tree one
-    segment deep (each rep on a copy of that tree: the search updates its
-    tree in place), and the depth after it."""
+    segment deep (each rep from a fresh root init and a first segment,
+    which also warm the search), and the depth after it."""
+    search = Search(eval_fn, config, sims_per_call)
     out = []
     for n_rows, st in pools.items():
         dev = st.device
-        active = torch.ones(st.age.shape, dtype=torch.bool, device=dev)
-        tree = _root_init(eval_fn, st, make_generator(n_rows, dev), config, active)
-        tree = _run_sims(eval_fn, tree, st, config, active, sims_per_call)  # warm and grow the tree
         total = 0.0
         for _ in range(reps):
-            copy = TreeArrays(*(x.clone() for x in tree))
-            grown, dt = _common.timed(lambda: _run_sims(eval_fn, copy, st, config, active, sims_per_call), dev)
+            ws = search.init(st, make_generator(n_rows, dev))
+            search.segment(ws)  # warm and grow the tree
+            _, dt = _common.timed(lambda: search.segment(ws), dev)
             total += dt
         ms = total / reps * 1e3
-        mean, _, top = _stats(measure_depth(grown, st, config))
+        mean, _, top = _stats(measure_depth(ws.tree, st, config))
         out.append({"rows": n_rows, "ms": ms, "ms_per_256_rows": ms / n_rows * 256,
                     "depth_mean": mean, "depth_max": top})
     return out

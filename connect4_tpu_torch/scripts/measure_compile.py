@@ -6,8 +6,9 @@ script times trace, lowering and XLA compilation of the search programs
 simulations, ``_finish``) at ``--slots`` rows, ``--sims`` simulations and
 ``--parallel-sims`` walkers with a fresh F=64 / fc 6 / res 6 bf16 net, then
 one whole refill generation of 4 x ``--slots`` games. The port compiles
-nothing when it runs but its kernel, so this tool times what a fresh
-process pays instead, phase by phase:
+its kernel and, on the card, captures the CUDA graphs of a search
+iteration once a shape (``mcts.batched.Search``), so this tool times what
+a fresh process pays instead, phase by phase:
 
 1. the interpreter's start and ``import torch``;
 2. the CUDA context (the first allocation on the card);
@@ -16,10 +17,15 @@ process pays instead, phase by phase:
    into a throwaway directory, so ``build/kernels/`` is neither read nor
    written, with the ptxas report;
 5. loading that library with ``ctypes``; the programs below launch it;
-6. the first call of each of the three search programs against a warm
-   call (the first launches load the kernel's module, initialise cuBLAS
-   for the heads and fill PyTorch's caching allocator);
-7. the whole refill generation, its first call against a second one.
+6. the first call of each of the three parts of a search
+   (``Search.init``, ``segment``, ``finish``) against a warm call (the
+   first launches load the kernel's module, initialise cuBLAS for the
+   heads and fill PyTorch's caching allocator; the first segment also
+   warms and captures the iteration's two graphs, whose capture times are
+   reported for the shape);
+7. the whole refill generation, its first call against a second one,
+   with the capture times of every pool width it met (its search's
+   workspaces).
 
 All of it runs in a child process that this tool spawns, so the phases
 are cold whoever calls the tool: the child checks that ``torch`` was not
@@ -101,15 +107,14 @@ def child(params_json: str, started_at: float) -> None:
     t = time.perf_counter()
     from connect4_tpu_torch import build
     from connect4_tpu_torch.config import MCTSConfig, NetConfig
-    from connect4_tpu_torch.env.core import initial_state, legal_moves
+    from connect4_tpu_torch.env.core import initial_state
     from connect4_tpu_torch.eval.evaluators import make_net_evaluator
-    from connect4_tpu_torch.mcts.batched import _finish, _root_init, _run_sims
+    from connect4_tpu_torch.mcts.batched import Search
     from connect4_tpu_torch.models import tower
     from connect4_tpu_torch.models.net import init_net
     from connect4_tpu_torch.scripts import _common
     from connect4_tpu_torch.training import replay
     from connect4_tpu_torch.training.self_play import make_refill_play_fn
-    from connect4_tpu_torch.types import AREA
     from connect4_tpu_torch.utils import make_generator, resolve_device
 
     out["import_port_s"] = time.perf_counter() - t
@@ -136,17 +141,9 @@ def child(params_json: str, started_at: float) -> None:
     else:
         out.update(cuda_context_s=None, nvcc_build_s=None, ptxas=None, library_load_s=None, not_run=CPU_REASON)
 
-    # the tower kernel's launches by batch, counted where they are made
-    by_boards = {}
-    launch = tower._tower_cuda
-
-    def counted(packed, x2d, chain=None):
-        boards = x2d.shape[0] // AREA
-        by_boards[boards] = by_boards.get(boards, 0) + 1
-        return launch(packed, x2d, chain)
-
-    tower._tower_cuda = counted
+    # the tower kernel's launches, counted where they are made (or replayed)
     tower.run_tower.launches = 0
+    tower.run_tower.by_shape = {}
 
     S = p["slots"]
     t = time.perf_counter()
@@ -156,34 +153,28 @@ def child(params_json: str, started_at: float) -> None:
     config = MCTSConfig(simulations=p["sims"], root_dirichlet_alpha=0.3, root_exploration_fraction=0.25,
                         num_sampling_moves=6, parallel_sims=p["parallel_sims"])
     state = initial_state((S,), device=dev)
-    active = torch.ones((S,), dtype=torch.bool, device=dev)
-    valid = legal_moves(state)
     generator = make_generator(0, dev)
+    search = Search(ev, config, p["sims_per_call"])
     _common.sync(dev)
     out["net_s"] = time.perf_counter() - t
 
-    def root():
-        return _root_init(ev, state, generator, config, active)
-
-    def segment(tree):
-        return _run_sims(ev, tree, state, config, active, p["sims_per_call"])
-
     programs = {}
-    with torch.no_grad():
-        for name in PROGRAMS:
-            times = []
-            for _ in range(2):  # the first call, then a warm one
-                if name == "root_init":
-                    _, dt = _common.timed(root, dev)
-                elif name == "segment":
-                    tree = root()
-                    _, dt = _common.timed(lambda: segment(tree), dev)
-                else:
-                    tree = segment(root())
-                    _, dt = _common.timed(lambda: _finish(tree, state, generator, config, valid), dev)
-                times.append(dt)
-            programs[name] = {"first_s": times[0], "warm_s": times[1]}
+    for name in PROGRAMS:
+        times = []
+        for _ in range(2):  # the first call, then a warm one
+            if name == "root_init":
+                _, dt = _common.timed(lambda: search.init(state, generator), dev)
+            elif name == "segment":
+                ws = search.init(state, generator)
+                _, dt = _common.timed(lambda: search.segment(ws), dev)
+            else:
+                ws = search.init(state, generator)
+                search.segment(ws)
+                _, dt = _common.timed(lambda: search.finish(ws, generator), dev)
+            times.append(dt)
+        programs[name] = {"first_s": times[0], "warm_s": times[1]}
     out["programs"] = programs
+    out["capture_ms"] = _captures(search)
 
     play = make_refill_play_fn(ev, config, S, 4 * S, p["sims_per_call"], device=dev)
     runs = []
@@ -191,12 +182,24 @@ def child(params_json: str, started_at: float) -> None:
         games, dt = _common.timed(lambda: play(make_generator(seed, dev)), dev)
         runs.append(dt)
     out["generation"] = {"games": 4 * S, "first_s": runs[0], "second_s": runs[1],
-                         "finished": int((games.result != 0).sum()), "moves": int(games.mask.sum())}
+                         "finished": int((games.result != 0).sum()), "moves": int(games.mask.sum()),
+                         "capture_ms": _captures(play.search)}
     if p["games_dir"]:
         replay.save_generation(p["games_dir"], 1, games)
     out["launches"] = tower.run_tower.launches
+    by_boards = {}
+    for per in tower.run_tower.by_shape.values():
+        for b, n in per.items():
+            by_boards[b] = by_boards.get(b, 0) + n
     out["launches_by_boards"] = by_boards
     print(json.dumps(out), flush=True)
+
+
+def _captures(search) -> dict:
+    """``{rows: {graph: capture ms}}`` of a search's workspaces (empty
+    where it runs no graphs: on the CPU)."""
+    return {str(rows): dict(ws.graphs.capture_ms) for (_, rows), ws in search.workspaces.items()
+            if ws.graphs is not None}
 
 
 def report(r: dict) -> None:
@@ -220,9 +223,11 @@ def report(r: dict) -> None:
     for name, t in r["programs"].items():
         label = f"segment[{r['sims_per_call']}]" if name == "segment" else name
         print(f"{label:24s} first {t['first_s']:8.3f}s  warm {t['warm_s']:8.3f}s")
+    print(f"graph captures (ms) by rows: {r['capture_ms'] or 'none (no CUDA graphs on the CPU)'}")
     g = r["generation"]
     print(f"full refill generation ({r['slots']} slots, {g['games']} games): first {g['first_s']:.1f}s, "
-          f"second {g['second_s']:.1f}s ({g['finished']} games finished, {g['moves']} moves)")
+          f"second {g['second_s']:.1f}s ({g['finished']} games finished, {g['moves']} moves); graph captures "
+          f"(ms) by pool width {g['capture_ms'] or 'none'}")
     print(f"tower kernel launches in the child: {r['launches']} by batch {r['launches_by_boards']}", flush=True)
 
 

@@ -3,23 +3,29 @@
 The counterpart of the JAX package's ``scripts/selfplay_breakdown.py``, at
 its workload: 256 slots, a fresh F=64 / fc 6 / res 6 bf16 net, 800
 simulations, K=8 walkers, ``sims_per_call`` 200, mid-game boards after 14
-random plies. It measures, after a warm wave (the kernel's build and
-cuDNN's algorithm search stay out of the times):
+random plies. It measures the search in its eager form
+(``graphs=False``: the same ops, dispatched one by one from the host) and,
+on the card, in its graphed form (``mcts.batched.Search``: each iteration
+replayed from CUDA graphs), after a warm wave of each (the kernel's build,
+cuDNN's algorithm search and the graphs' capture stay out of the times):
 
 1. each part of a wave with the card synchronised after it: the root
-   evaluation (``mcts.batched._root_init``), every ``_run_sims`` segment and
-   ``_finish``;
+   evaluation (``Search.init``), every segment and ``Search.finish``;
 2. the bare evaluator forward at the fan-out batch S x K, against which a
    segment's forwards are counted (one forward a search iteration);
-3. the wave with and without those per-part synchronisations. The port's
-   descent reads a flag from the card once per tree level, so a wave
-   without them still waits on the card every level: it is not pipelined
-   the way a JAX wave is, and the difference is only the few syncs saved;
-4. the card's busy share over one traced segment (``utils.trace``: the
+3. the wave with and without those per-part synchronisations, and a
+   search iteration's mean;
+4. one level of the descent and one iteration's tail (expansion,
+   evaluation, backup), each timed over repeated calls on the tree the
+   wave left; the graphed form also reports each graph's capture;
+5. the card's busy share over one traced segment (``utils.trace``: the
    kernels' and copies' union over the segment's wall-clock), against the
    untraced segment's time as well;
-5. the net's FLOP/s against the H100's bf16 peak, a board's FLOPs counted
+6. the net's FLOP/s against the H100's bf16 peak, a board's FLOPs counted
    as ``models.tower.tower_bound`` counts them (37.3 MFLOP at full width).
+
+The top-level numbers are the eager form's; ``graphed`` holds the graphed
+form's (``None`` on the CPU, which has no CUDA graphs).
 
     python -m connect4_tpu_torch.scripts.selfplay_breakdown [--waves 3] [--device cpu]
 """
@@ -35,12 +41,91 @@ import numpy as np
 import torch
 
 from connect4_tpu_torch.config import MCTSConfig, NetConfig
-from connect4_tpu_torch.env.core import BoardState, legal_moves
-from connect4_tpu_torch.mcts.batched import _finish, _root_init, _run_sims
+from connect4_tpu_torch.env.core import BoardState
+from connect4_tpu_torch.mcts.batched import PATH_MAX, Search
 from connect4_tpu_torch.models import tower
 from connect4_tpu_torch.scripts import _common
 from connect4_tpu_torch.types import ONGOING
 from connect4_tpu_torch.utils import make_generator, resolve_device, trace
+
+# calls a part of an iteration is timed over: a whole descent's levels
+# (the most one walks, so the level counter stays in its path), 10 tails
+PART_REPS = {"level": PATH_MAX - 2, "tail": 10}
+
+
+def _form(search: Search, state: BoardState, active, waves: int, generator: torch.Generator) -> dict:
+    """One form of the search (eager or graphed) timed on ``state``."""
+    device = state.device
+    n_segments = search.config.simulations // search.sims_per_call
+    iterations = search.config.simulations // search.config.parallel_sims
+
+    t0 = time.perf_counter()
+    search(state, generator, active)  # warm-up, and the graphs' capture
+    _common.sync(device)
+    warm_s = time.perf_counter() - t0
+
+    per = {"init": 0.0, "segments": 0.0, "finish": 0.0}
+    seg_times = []
+    for _ in range(waves):
+        ws, dt = _common.timed(lambda: search.init(state, generator, active), device)
+        per["init"] += dt
+        for _ in range(n_segments):
+            _, dt = _common.timed(lambda: search.segment(ws), device)
+            per["segments"] += dt
+            seg_times.append(dt)
+        res, dt = _common.timed(lambda: search.finish(ws, generator), device)
+        per["finish"] += dt
+    blocking = sum(per.values()) / waves
+
+    def unsynced_waves():
+        for _ in range(waves):
+            out = search(state, generator, active)
+        return out
+
+    res, unsynced = _common.timed(unsynced_waves, device)
+    unsynced /= waves
+
+    # a level and a tail, on the tree the last wave left (the next init
+    # resets it)
+    ws = search.workspaces[device, state.age.shape[0]]
+    part_ms = {}
+    for name, reps in PART_REPS.items():
+        part = getattr(search, name)
+        _, dt = _common.timed(lambda: [part(ws) for _ in range(reps)], device)
+        part_ms[name] = dt / reps * 1e3
+
+    # the card's busy share over one traced segment of a warm tree
+    ws = search.init(state, generator, active)
+    search.segment(ws)
+    _common.sync(device)
+    with tempfile.TemporaryDirectory(prefix="selfplay_breakdown_") as log_dir:
+        with trace(log_dir):
+            t_start = time.perf_counter()
+            search.segment(ws)
+            _common.sync(device)
+            traced_s = time.perf_counter() - t_start
+        events = _common.trace_events(log_dir)
+    busy_ms = _common.device_busy_ms(events)
+    seg_mean = float(np.mean(seg_times))
+    out = {
+        "warm_s": warm_s,
+        "init_ms": per["init"] / waves * 1e3, "segments_ms": per["segments"] / waves * 1e3,
+        "finish_ms": per["finish"] / waves * 1e3,
+        "segment_ms": [t * 1e3 for t in seg_times[:n_segments]],
+        "blocking_wave_ms": blocking * 1e3, "unsynced_wave_ms": unsynced * 1e3,
+        "iteration_ms": per["segments"] / waves / iterations * 1e3,
+        "level_ms": part_ms["level"], "tail_ms": part_ms["tail"],
+        "share": {k: v / waves / blocking for k, v in per.items()},
+        "traced_segment_ms": traced_s * 1e3,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": None if busy_ms is None else busy_ms / (traced_s * 1e3),
+        "device_busy_share_of_untraced": None if busy_ms is None else busy_ms / (seg_mean * 1e3),
+        "sims_per_s": state.age.shape[0] * search.config.simulations / unsynced,
+    }
+    if ws.graphs is not None:
+        out["capture_ms"] = dict(ws.graphs.capture_ms)
+        out["replays"] = ws.graphs.replays
+    return out, res
 
 
 @torch.no_grad()
@@ -55,102 +140,44 @@ def breakdown(
     eval_reps: int = 20,
 ) -> dict:
     """Time ``waves`` searches of every board of ``state`` (finished games
-    ride along inactive), split into their parts. ``net_config`` names the
-    net ``eval_fn`` runs, for the FLOP count. Returns the times in
-    ms, the card's busy share and the counts of the last wave: live rows,
-    moves chosen and tree nodes a row."""
+    ride along inactive), split into their parts, in the eager form and,
+    on the card, in the graphed form. ``net_config`` names the net
+    ``eval_fn`` runs, for the FLOP count. Returns the times in ms, the
+    card's busy share and the counts of the eager form's last wave: live
+    rows, moves chosen and tree nodes a row."""
     device = state.device
     S, K = state.age.shape[0], config.parallel_sims
     if config.simulations % sims_per_call:
         raise ValueError("simulations must be divisible by sims_per_call")
-    n_segments = config.simulations // sims_per_call
     active = state.result == ONGOING
-    valid = legal_moves(state)
     flat = state.map(lambda x: torch.cat([x] * K))  # the fan-out batch
 
-    def init():
-        return _root_init(eval_fn, state, generator, config, active)
-
-    def segment(tree):
-        return _run_sims(eval_fn, tree, state, config, active, sims_per_call)
-
-    def finish(tree):
-        return _finish(tree, state, generator, config, valid)
-
-    # warm-up: every program once
-    t0 = time.perf_counter()
-    finish(segment(init()))
     eval_fn(flat)
-    _common.sync(device)
-    warm_s = time.perf_counter() - t0
-
     _, eval_s = _common.timed(lambda: [eval_fn(flat) for _ in range(eval_reps)], device)
     eval_s /= eval_reps
 
-    per = {"init": 0.0, "segments": 0.0, "finish": 0.0}
-    seg_times = []
-    for _ in range(waves):
-        tree, dt = _common.timed(init, device)
-        per["init"] += dt
-        for _ in range(n_segments):
-            tree, dt = _common.timed(lambda: segment(tree), device)
-            per["segments"] += dt
-            seg_times.append(dt)
-        res, dt = _common.timed(lambda: finish(tree), device)
-        per["finish"] += dt
-    blocking = sum(per.values()) / waves
-
-    def unsynced_waves():
-        for _ in range(waves):
-            tree = init()
-            for _ in range(n_segments):
-                tree = segment(tree)
-            out = finish(tree)
-        return out
-
-    _, unsynced = _common.timed(unsynced_waves, device)
-    unsynced /= waves
-
-    # the card's busy share over one traced segment of a warm tree
-    tree = segment(init())
-    _common.sync(device)
-    with tempfile.TemporaryDirectory(prefix="selfplay_breakdown_") as log_dir:
-        with trace(log_dir):
-            t_start = time.perf_counter()
-            segment(tree)
-            _common.sync(device)
-            traced_s = time.perf_counter() - t_start
-        events = _common.trace_events(log_dir)
-    busy_ms = _common.device_busy_ms(events)
-    seg_mean = float(np.mean(seg_times))
-
+    out, res = _form(Search(eval_fn, config, sims_per_call, graphs=False), state, active, waves, generator)
+    graphed = None
+    if device.type == "cuda":
+        graphed, _ = _form(Search(eval_fn, config, sims_per_call), state, active, waves, generator)
     iters = config.simulations // K
-    eval_share = iters * eval_s / unsynced
     out = {
         "device": _common.device_name(device),
         "slots": S, "live_rows": int(active.sum()), "simulations": config.simulations,
         "parallel_sims": K, "sims_per_call": sims_per_call, "waves": waves,
-        "warm_s": warm_s,
         "eval_ms": eval_s * 1e3, "eval_batch": S * K,
-        "init_ms": per["init"] / waves * 1e3, "segments_ms": per["segments"] / waves * 1e3,
-        "finish_ms": per["finish"] / waves * 1e3,
-        "segment_ms": [t * 1e3 for t in seg_times[:n_segments]],
-        "blocking_wave_ms": blocking * 1e3, "unsynced_wave_ms": unsynced * 1e3,
-        "share": {k: v / waves / blocking for k, v in per.items()},
-        "eval_share": eval_share,
-        "traced_segment_ms": traced_s * 1e3,
-        "device_busy_ms": busy_ms,
-        "device_busy_share": None if busy_ms is None else busy_ms / (traced_s * 1e3),
-        "device_busy_share_of_untraced": None if busy_ms is None else busy_ms / (seg_mean * 1e3),
-        "sims_per_s": S * config.simulations / unsynced,
+        **out,
+        "eval_share": iters * eval_s / (out["unsynced_wave_ms"] / 1e3),
+        "graphed": graphed,
         "moves": res.move[active].tolist(),
         "nodes": res.tree.next_free.tolist(),
     }
     if net_config is not None and device.type == "cuda":
         flops_board = tower.tower_bound(net_config, 1)[2]
         out["mflop_per_board"] = flops_board / 1e6
-        out["achieved_tflops"] = out["sims_per_s"] * flops_board / 1e12
-        out["mfu"] = out["sims_per_s"] * flops_board / tower.PEAK_BF16_FLOPS
+        for form in (out, graphed):
+            form["achieved_tflops"] = form["sims_per_s"] * flops_board / 1e12
+            form["mfu"] = form["sims_per_s"] * flops_board / tower.PEAK_BF16_FLOPS
         out["eval_tflops"] = S * K * flops_board / eval_s / 1e12
         out["eval_mfu"] = S * K * flops_board / eval_s / tower.PEAK_BF16_FLOPS
     return out
@@ -166,7 +193,7 @@ def report(r: dict) -> None:
     )
     print(
         f"wave wall-time: blocking {r['blocking_wave_ms']:.1f} ms, without per-part syncs "
-        f"{r['unsynced_wave_ms']:.1f} ms (the descent still syncs once per tree level)"
+        f"{r['unsynced_wave_ms']:.1f} ms"
     )
     print(
         f"per-wave eval share (est): {r['eval_share']:.1%} of the wave; descent/expand/backup "
@@ -179,6 +206,16 @@ def report(r: dict) -> None:
            f"{r['device_busy_ms']:.1f} ms of {r['traced_segment_ms']:.1f} ms traced = {busy:.1%} "
            f"({r['device_busy_share_of_untraced']:.1%} of an untraced segment)")
     )
+    print(f"per iteration {r['iteration_ms']:.2f} ms; one descent level {r['level_ms']:.3f} ms, one tail "
+          f"{r['tail_ms']:.3f} ms")
+    g = r["graphed"]
+    if g is None:
+        print("graphed form: not run (no CUDA graphs on the CPU)")
+    else:
+        print(f"graphed form: warm-up and capture {g['warm_s']:.2f} s (captures {g['capture_ms']} ms); wave "
+              f"{g['unsynced_wave_ms']:.1f} ms, blocking {g['blocking_wave_ms']:.1f} ms; per iteration "
+              f"{g['iteration_ms']:.2f} ms; one level {g['level_ms']:.3f} ms, one tail {g['tail_ms']:.3f} ms; "
+              f"device busy {g['device_busy_share']} of a traced segment; {g['sims_per_s']:,.0f} sims/s")
     if "mfu" in r:
         print(
             f"throughput {r['sims_per_s']:,.0f} sims/s x {r['mflop_per_board']:.1f} MFLOP/sim = "

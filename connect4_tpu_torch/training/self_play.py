@@ -152,6 +152,7 @@ def make_stepwise_play_fn(
                 break
         return _finalize(state, bufs)
 
+    run.search = search
     return run
 
 
@@ -250,7 +251,7 @@ def make_refill_play_fn(
         moves_b[gid, t] = res.move
         values_b[gid, t] = res.value
         policies_b[gid, t] = res.values_policy
-        mask_b[gid, t] = True
+        mask_b[gid, t] = torch.ones((), dtype=torch.bool, device=dev)  # not a host scalar: no copy, no sync
         state = step(state, res.move, active)
 
         # slots whose game just ended: record the result, then either start
@@ -332,6 +333,7 @@ def make_refill_play_fn(
             length=mask.sum(dim=1).to(torch.int32),
         )
 
+    run.search = search  # its workspaces, one a pool width, hold the graphs
     return run
 
 

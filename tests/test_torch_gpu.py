@@ -1,8 +1,9 @@
 """Tests that need a CUDA card: the hand-written kernels against their
 plain PyTorch versions on the card, the train step on the card against the
 CPU, the data-parallel step of two ranks sharing the card against one
-process, the solver's build on the machine with the card, and
-``scripts.evaluate_posn`` on the card against the CPU. They skip
+process, the solver's build on the machine with the card,
+``scripts.evaluate_posn`` on the card against the CPU, and the search
+replayed from CUDA graphs against its eager form. They skip
 where there is no card. This file imports neither JAX nor the JAX package:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu
@@ -295,3 +296,91 @@ def test_evaluate_posn_on_card_matches_cpu(tmp_path):
     assert abs(card["value"] - cpu["value"]) <= 5e-2
     assert max(abs(a - b) for a, b in zip(card["prior"], cpu["prior"])) <= 2e-2
     assert sum(card["root_visits"]) == 64
+
+
+def _search_results_equal(a, b):
+    for name in ("move", "value", "values_policy", "visit_policy", "root_value"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    for name, x, y in zip(a.tree._fields, a.tree, b.tree):
+        assert torch.equal(x, y), f"tree.{name}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, k, sims", [(512, 8, 64), (49, 1, 32)])
+def test_graphed_search_equals_eager_on_card(rows, k, sims):
+    """The search replayed from CUDA graphs against its eager form (the
+    same ops dispatched one by one) on the card, gen-161 through the tower
+    kernel, noise and sampling on, one generator seed: bit for bit in
+    moves, policies, values and every tree slab, at the bench's pool (512
+    rows, K=8) and the gating match's K=1 side (49 rows). The eager form
+    repeats itself; the replayed search makes no host sync (the sync debug
+    mode raises on one) and counts as many tower launches as the eager."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from connect4_tpu_torch.config import MCTSConfig
+    from connect4_tpu_torch.eval.evaluators import make_net_evaluator
+    from connect4_tpu_torch.mcts.batched import Search
+
+    g = torch.Generator(device="cuda").manual_seed(rows)
+    state = initial_state((rows,), device="cuda")
+    plies = torch.randint(0, 30, (rows,), generator=g, device="cuda")
+    for t in range(30):
+        legal = legal_moves(state)
+        move = torch.multinomial(torch.where(legal.any(-1, keepdim=True), legal.float(), 1.0), 1, generator=g)[:, 0]
+        state = step(state, move, t < plies)
+    active = state.result == 0
+    config = MCTSConfig(simulations=sims, parallel_sims=k, root_dirichlet_alpha=0.3,
+                        root_exploration_fraction=0.25, num_sampling_moves=6)
+    evaluator = make_net_evaluator(load_example_net(device="cuda"))
+
+    def run(search, mode="default"):
+        generator = torch.Generator(device="cuda").manual_seed(1)
+        before = tower.run_tower.launches
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            res = search(state, generator, active)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return res, tower.run_tower.launches - before
+
+    eager = Search(evaluator, config, graphs=False)
+    e1, e_launches = run(eager)
+    e2, _ = run(eager)
+    _search_results_equal(e1, e2)
+    graphed = Search(evaluator, config)
+    g1, g1_launches = run(graphed)  # warm-up and capture
+    g2, g2_launches = run(graphed, "error")  # replays
+    _search_results_equal(e1, g1)
+    _search_results_equal(e1, g2)
+    assert e_launches == g1_launches == g2_launches == 1 + sims // k
+    (ws,) = graphed.workspaces.values()
+    assert set(ws.graphs.graph) == {"level", "tail"}
+
+
+@pytest.mark.gpu
+def test_refill_self_play_graphed_equals_eager_on_card(monkeypatch):
+    """A refill self-play of 64 games in 32 slots with gen-161 (K=8, 32
+    simulations, noise and sampling on) is the same in both forms of the
+    search: every record, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import functools
+
+    import connect4_tpu_torch.training.self_play as sp
+    from connect4_tpu_torch.config import MCTSConfig
+    from connect4_tpu_torch.eval.evaluators import make_net_evaluator
+    from connect4_tpu_torch.mcts import batched
+
+    config = MCTSConfig(simulations=32, parallel_sims=8, root_dirichlet_alpha=0.3,
+                        root_exploration_fraction=0.25, num_sampling_moves=6)
+    evaluator = make_net_evaluator(load_example_net(device="cuda"))
+    outs = {}
+    for graphs in (False, True):
+        monkeypatch.setattr(sp, "make_search_fn", functools.partial(batched.make_search_fn, graphs=graphs))
+        play = sp.make_refill_play_fn(evaluator, config, 32, 64, device="cuda")
+        outs[graphs] = play(torch.Generator(device="cuda").manual_seed(0))
+        assert all((ws.graphs is not None) == graphs for ws in play.search.workspaces.values())
+    assert int((outs[True].result != 0).sum()) == 64
+    for name, a, b in zip(outs[False]._fields, outs[False], outs[True]):
+        assert torch.equal(a, b), name
