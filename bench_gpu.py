@@ -20,13 +20,14 @@ settings, as for ``bench.py``, and BENCH_FILTERS the net's width (above
 256 filters the tower runs through the layer kernel). A workload other
 than 1200 x 800 is scaled linearly to it and marked as scaled on stderr.
 
-Needs a CUDA card (the tower kernel is built for sm_90a) and ``nvcc``;
-raises without CUDA. Nothing in the port compiles at run time except that
-kernel, so the warm-up before the timed generation is a small one: the
-kernel's build, cuDNN's choice of algorithms and the allocator's first
-blocks. The timed generation's search is a new one, as each generation of
-``TrainingLoop`` is, so the capture of its CUDA graphs (two a pool width)
-is timed with it and printed.
+Needs a CUDA card (the tower and descent kernels are built for sm_90a) and
+``nvcc``; raises without CUDA. Nothing in the port compiles at run time
+except those kernels, so the warm-up before the timed generation is a small
+one: the kernels' builds, cuDNN's choice of algorithms and the allocator's
+first blocks. The timed generation's search is a new one, as each generation of
+``TrainingLoop`` is, so the capture of its CUDA graphs (one a pool width:
+an iteration, whose descent is one launch of the descent kernel) is timed
+with it and printed, beside the descent kernel's launches.
 """
 
 import json
@@ -52,6 +53,7 @@ def main():
 
     from connect4_tpu_torch.config import MCTSConfig, ModelConfig, NetConfig
     from connect4_tpu_torch.eval.evaluators import make_net_evaluator
+    from connect4_tpu_torch.mcts import batched
     from connect4_tpu_torch.models import tower
     from connect4_tpu_torch.training.learner import (
         init_train_state,
@@ -142,6 +144,7 @@ def main():
 
     # ---- timed generation --------------------------------------------------
     tower.run_tower.launches = 0
+    batched.descend.launches = 0
     tower.run_tower.by_shape = {}
     torch.cuda.synchronize()
     t_gen = time.time()
@@ -149,11 +152,12 @@ def main():
     torch.cuda.synchronize()
     t_selfplay = time.time() - t_gen
     launches = tower.run_tower.launches
+    descents = batched.descend.launches
     by_boards = {}  # the tower's launches by batch
     for per in tower.run_tower.by_shape.values():
         for b, n in per.items():
             by_boards[b] = by_boards.get(b, 0) + n
-    # the CUDA graphs the generation's search captured, one pair a pool width
+    # the CUDA graphs the generation's search captured, one a pool width
     captures = {rows: dict(ws.graphs.capture_ms) for (_, rows), ws in play.search.workspaces.items()
                 if ws.graphs is not None}
 
@@ -182,7 +186,8 @@ def main():
         f"loss: {losses[0]:.4f} -> {losses[-1]:.4f}  tower kernel launches: {launches}"
     )
     log(f"tower launches by batch (boards): {dict(sorted(by_boards.items(), reverse=True))}")
-    log(f"search graphs captured in the generation (ms, by pool width): {captures}")
+    log(f"search graphs captured in the generation (ms, by pool width): {captures}; descent kernel launches: "
+        f"{descents}")
     log(
         f"throughput: {moves_played / t_selfplay:,.0f} moves/s, "
         f"{sims_total / t_selfplay:,.0f} sims/s"

@@ -7,8 +7,10 @@ CUDA toolkit; imports nothing of JAX or of the JAX package. Phases, each
 fatal on failure:
 
 1. build every CUDA kernel of the main path from the sources in the
-   checkout (``nvcc``, printed with its ptxas report: the fused tower
-   kernels and the layer kernel ``tower_layer`` are one source);
+   checkout, one ``nvcc`` a source, all started together, each printed
+   with its ptxas report: the fused tower kernels and the layer kernel
+   ``tower_layer`` (``models/csrc/tower.cu``), and the search's descent
+   kernel (``mcts/csrc/descent.cu``);
 2. hold each kernel against its plain PyTorch version on the card, on
    legal board positions at every batch shape the driven paths launch it
    at (``COMPARE_BOARDS``: a pool of S slots evaluates S roots and S x K=8
@@ -48,23 +50,33 @@ fatal on failure:
 4. check the search and self-play on the card against the same code on
    the CPU with the deterministic centre evaluator; then [graph]: the
    search replayed from CUDA graphs (every search on the card runs so,
-   in every phase) against its eager form with one generator seed, at
-   the bench's pool (512 rows, K=8, 800 simulations in calls of 200) and
-   at the gating match's K=1 side (its 49 two-ply starts, 64 simulations,
-   gen-161 and the centre heuristic), and with fresh nets of 256 and 512
-   filters at 64 rows, K=8, ``GRAPH_SHAPES``: the eager form
+   in every phase: an iteration is one graph, whose descent is one launch
+   of the descent kernel) against its eager form with one generator seed,
+   at the bench's pool (512 rows, K=8, 800 simulations in calls of 200)
+   and at the gating match's K=1 side (its 49 two-ply starts, 64
+   simulations, gen-161 and the centre heuristic), and with fresh nets of
+   256 and 512 filters at 64 rows, K=8, ``GRAPH_SHAPES``: the eager form
    twice, then the graphed form twice, the second call replaying the
-   graphs under ``torch.cuda.set_sync_debug_mode("error")``; equal bit for
-   bit in moves, policies, values and every tree slab, the same tower
-   launches (counted at replay); the search and iteration ms of both forms
-   and each graph's capture ms are printed. Then a refill pool
-   (``GRAPH_SYNC_POOL``) plays under the ``"warn"`` mode and its host
-   syncs are counted by the line that made them;
+   graph under ``torch.cuda.set_sync_debug_mode("error")``, then the level
+   form (the descent as ``min(t - 1, 42)`` replays of a one-level graph, as
+   the search ran before the descent kernel) twice; equal bit for bit in
+   moves, policies, values and every tree slab, the same tower launches
+   (counted at replay), the descent kernel launched once an iteration; the
+   search and iteration ms of every form and each graph's capture ms are
+   printed. On the trees of each shape before an early, a middle and the
+   last iteration's descent, the descent kernel must differ in 0 elements
+   from ``descend_plain`` (the level loop until no row descends) and from
+   ``min(t - 1, 42)`` levels; at the bench and match shapes it is timed
+   (device time from a profiler trace) beside its bound and the level
+   graphs' replays. Then a refill pool (``GRAPH_SYNC_POOL``) plays under
+   the ``"warn"`` mode and its host syncs are counted by the line that
+   made them;
 5. drive the self-play path: a generation through
    ``make_net_evaluator`` + ``make_refill_play_fn`` with gen-161, 512 slots,
    K=8, 64 simulations, 512 games, noise and sampling on. Every game must
    finish and replay legally on the host board; the kernel launch counts
-   are read from this run alone;
+   are read from this run alone, and the descent kernel must have been
+   launched once a search iteration;
 6. check the learner on the card against the CPU: three SGD steps of the
    full-width net (F=64, fc 6, res 6) on 512 legal positions with made-up
    targets from the same weights, in float32 (IEEE float32 on the card, as
@@ -110,9 +122,9 @@ fatal on failure:
     ``descent_depth_profile``; one epoch of ``verify_supervised``;
     ``ship_run_artifacts``; ``measure_compile`` at 64 slots, 64 simulations
     and one 64-simulation segment, its cold phases (``import torch``, the
-    CUDA context, a cold ``nvcc`` build of the tower kernel, the library's
-    load, the first and warm calls of the search programs, two refill
-    generations of 256 games) in the child process it spawns, whose
+    CUDA context, a cold ``nvcc`` build of the tower and descent kernels,
+    the libraries' load, the first and warm calls of the search programs,
+    two refill generations of 256 games) in the child process it spawns, whose
     launches it reports and this script checks with its own;
     ``k_head_to_head`` with gen-161, K=8 against K=16 at 256 simulations
     (cut from 800), 2-ply starts in both colours; ``draw_bucket_diagnosis``
@@ -178,8 +190,14 @@ fatal on failure:
 19. print the ``kernels`` JSON line (``tower``: the fused kernel up to 64
     filters, at F=64; ``tower_wide``: the fused kernel at 128 and 256
     filters, ``tower_kernel_wide``, at F=256 and the batch most of [wide]'s
-    forwards have; ``tower_layer`` at F=512), the card's name and power
-    limit, and last ``{"ok": true, "device": {...}}``.
+    forwards have; ``tower_layer`` at F=512; ``descent``: the descent
+    kernel, its launches on the counted paths, each read just after its
+    path with the count set to 0 just before it, its time, bound and the
+    level graphs' time before the last iteration of [graph]'s bench shape,
+    and its largest difference from its plain version over every snapshot;
+    no single PyTorch call computes a descent, so its ``library_ms`` is
+    null), the card's name and power limit, and last ``{"ok": true,
+    "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 package is not beside this script. A copy of every number goes to
@@ -188,6 +206,7 @@ package is not beside this script. A copy of every number goes to
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import json
@@ -1146,13 +1165,15 @@ def scripts_phase(dev, shapes, run_dir):
         f"{b['device_busy_share']:.1%} ({b['device_busy_share_of_untraced']:.1%} of an untraced segment); "
         f"{b['sims_per_s']:,.0f} sims/s = {b['achieved_tflops']:.3f} TFLOP/s, {b['mfu']:.3%} of the bf16 peak; "
         f"bare forward {b['eval_tflops']:.1f} TFLOP/s ({b['eval_mfu']:.1%}); an iteration {b['iteration_ms']:.2f} ms, "
-        f"a level {b['level_ms']:.3f} ms, a tail {b['tail_ms']:.3f} ms; launches {launches['selfplay_breakdown']}")
+        f"the descent kernel {b['descent_ms'] * 1e3:.2f} us (device time, {b['descent_launches_traced']} launches "
+        f"traced), a tail {b['tail_ms']:.3f} ms; launches {launches['selfplay_breakdown']}")
     g = b["graphed"]
     log(f"[scripts] selfplay_breakdown, graphed: warm-up and captures {g['warm_s']:.2f} s (captures "
         f"{', '.join(f'{k} {v:.1f} ms' for k, v in g['capture_ms'].items())}); blocking wave "
         f"{g['blocking_wave_ms']:.1f} ms = init {g['init_ms']:.1f} + segments {g['segments_ms']:.1f} + finish "
         f"{g['finish_ms']:.1f}; without per-part syncs {g['unsynced_wave_ms']:.1f} ms; an iteration "
-        f"{g['iteration_ms']:.3f} ms, a level {g['level_ms']:.4f} ms, a tail {g['tail_ms']:.4f} ms; card busy "
+        f"{g['iteration_ms']:.3f} ms, the descent kernel {g['descent_ms'] * 1e3:.2f} us (device time, "
+        f"{g['descent_launches_traced']} launches traced), a tail {g['tail_ms']:.4f} ms; card busy "
         f"{g['device_busy_ms']} ms of a traced segment of {g['traced_segment_ms']:.1f} ms = "
         f"{g['device_busy_share']} ({g['device_busy_share_of_untraced']} of an untraced segment); "
         f"{g['sims_per_s']:,.0f} sims/s, {g['mfu']:.3%} of the bf16 peak")
@@ -1189,8 +1210,8 @@ def scripts_phase(dev, shapes, run_dir):
         f"process {mcr['parent_pid']}; torch loaded at its start: {mcr['torch_loaded_at_start']}), "
         f"{mcr['slots']} slots, {mcr['sims']} sims, K={mcr['parallel_sims']}: interpreter start "
         f"{mcr['interpreter_start_s']:.2f} s, import torch {mcr['import_torch_s']:.2f} s, import the port "
-        f"{mcr['import_port_s']:.2f} s, CUDA context {mcr['cuda_context_s']:.2f} s, cold nvcc build of the tower "
-        f"{mcr['nvcc_build_s']:.2f} s, library load {mcr['library_load_s']:.3f} s; first / warm call: "
+        f"{mcr['import_port_s']:.2f} s, CUDA context {mcr['cuda_context_s']:.2f} s, cold nvcc build of the tower and "
+        f"the descent {mcr['nvcc_build_s']:.2f} s, library load {mcr['library_load_s']:.3f} s; first / warm call: "
         + ", ".join(f"{k} {t['first_s']:.3f} / {t['warm_s']:.3f} s" for k, t in mcr["programs"].items())
         + f"; graph captures at {mcr['slots']} rows {mcr['capture_ms']} ms; refill generation of "
         f"{mcr['generation']['games']} games first {mcr['generation']['first_s']:.2f} s, second "
@@ -1249,7 +1270,7 @@ def scripts_phase(dev, shapes, run_dir):
             problems.append(f"pallas_eval_speed: the routes differ by more than the JAX script's {jdv}, {jdp} "
                             f"+ {TOL_VALUE_PRIOR}: {row}")
     finite = [b["blocking_wave_ms"], b["unsynced_wave_ms"], b["eval_ms"], b["device_busy_share"], ps["sims_per_s"],
-              g["unsynced_wave_ms"], g["iteration_ms"]]
+              g["unsynced_wave_ms"], g["iteration_ms"], b["descent_ms"], g["descent_ms"]]
     if not np.isfinite(finite).all() or not 0 < b["device_busy_share"] <= 1:
         problems.append(f"selfplay_breakdown or profile_search: {finite}")
     if problems:
@@ -1867,6 +1888,9 @@ GRAPH_SHAPES = (
     dict(name="wide 64x8", rows=64, parallel_sims=8, simulations=64, sims_per_call=None, evaluator="f256"),
     dict(name="wider 64x8", rows=64, parallel_sims=8, simulations=64, sims_per_call=None, evaluator="f512"),
 )
+# the shapes at which [graph] times the descent kernel: the bench's and
+# the gating match's K=1 side
+DESCENT_TIMED = ("bench 512x8", "match 49x1")
 # the refill pool whose host syncs [graph] counts, a wave at a time
 GRAPH_SYNC_POOL = dict(slots=64, games=128, simulations=64, parallel_sims=8)
 
@@ -1887,18 +1911,223 @@ def search_max_diff(a, b) -> float:
         (a.root_value, b.root_value), (a.tree.stats, b.tree.stats), (a.tree.prior, b.tree.prior)))
 
 
+# [graph]'s check of the descent kernel (``mcts/csrc/descent.cu``) on the
+# trees of a real search: launches a snapshot's descent is timed over, and
+# the level graph's replay timings (the parent's form of a descent)
+DESCENT_TIME_REPS = 20
+LEVEL_GRAPH_REPS = 5
+# what one descent needs to move and compute, for its bound, each byte
+# once: every row's flag is read (1 B); a row that descends reads its node,
+# heights, age, depth, its root's block base and its root's visits (8 + 28
+# + 4 + 8 + 4 + 4 B) and writes node, heights, age, flag and depth back (49
+# B); a level reads the node's child block's stats (7 x 16 B: the node's
+# own visits below the root are the chosen child's, read a level before),
+# the node's prior row (28 B) and the chosen child's block base (4 B), and
+# writes a path entry and a stone (8 + 1 B); the batch writes its level
+# count once (8 B). The kernel reads more than that: all seven children's
+# block bases a level (24 B more, its prefetch of the next level's base,
+# so that a level waits for one L2 round trip and not two), and each
+# node's visits again. A child's score is 14 float32 operations of
+# ``batched._score_parts`` (log and sqrt counted as one)
+DESCENT_ROW_BYTES = 56 + 49
+DESCENT_LEVEL_BYTES = 144 + 9
+DESCENT_BATCH_BYTES = 8
+DESCENT_SCORE_OPS = 14
+# the descent's latency floor: before its first level a row waits for two
+# dependent reads (its node, then that node's block base), then for one a
+# level (the child block, read beside its seven block bases), each an L2
+# round trip (``scripts.l2_latency``'s pointer chase over a buffer the size
+# of the bench shape's slabs), besides what an empty kernel takes
+DESCENT_START_READS = 2
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (the same)
+
+
+def descent_fields(d) -> dict:
+    """The tensors of a ``batched.Descent``, by name."""
+    return {"node": d.node, "pieces": d.board.pieces, "height": d.board.height, "age": d.board.age,
+            "result": d.board.result, "descending": d.descending, "path": d.path, "depth": d.depth,
+            "level": d.level}
+
+
+def clone_descent(d):
+    import torch
+
+    from connect4_tpu_torch.mcts.batched import Descent
+
+    return Descent(d.node.clone(), d.board.map(torch.clone), d.descending.clone(), d.path.clone(),
+                   d.depth.clone(), d.level.clone())
+
+
+def restore_descent(d, d0) -> None:
+    for name, x in descent_fields(d).items():
+        x.copy_(descent_fields(d0)[name])
+
+
+def descent_snapshots(search, roots, generator, active) -> dict:
+    """Drive ``search`` through ``init`` and its iterations one by one and
+    keep clones of the tree and the descent before the descent of
+    iterations 2, T // 2 and T: ``{t: (tree, descent)}``."""
+    import torch
+
+    iterations = search.config.simulations // search.config.parallel_sims
+    keep = sorted({2, iterations // 2, iterations})
+    ws = search.init(roots, generator, active)
+    snaps = {}
+    for t in range(1, iterations + 1):
+        ws.iteration = t
+        if t in keep:
+            snaps[t] = (type(ws.tree)(*(x.clone() for x in ws.tree)), clone_descent(ws.descent))
+        search.iteration(ws)
+    torch.cuda.synchronize()
+    return snaps
+
+
+def check_descent(tree, d0, t: int, config, k: int) -> dict:
+    """From the descent ``d0`` on ``tree`` (before iteration ``t``'s
+    walk): the kernel against ``descent_plain`` until no row descends, in
+    elements that differ by field, and against ``min(t - 1, 42)`` levels of
+    ``_descend_level`` (the level form; every field but ``level``). The kernel's
+    launch is a comparison, so it is not counted. Also returns what the
+    walk needed: rows that descended, levels walked, the deepest row's."""
+    import torch
+
+    from connect4_tpu_torch.mcts import batched
+    from connect4_tpu_torch.mcts.batched import PATH_MAX, _descend_level
+
+    rows = torch.arange(d0.node.shape[0], device=d0.node.device)
+    capacity = tree.parent.shape[1] - 1
+    kernel, plain, bounded = clone_descent(d0), clone_descent(d0), clone_descent(d0)
+    before = batched.descend.launches
+    batched.descend(kernel, tree, rows, config, capacity, k)
+    batched.descend.launches = before
+    batched.descend_plain(plain, tree, rows, config, capacity, k)
+    for _ in range(min(t - 1, PATH_MAX - 2)):
+        _descend_level(bounded, tree, rows, config, capacity, k)
+    torch.cuda.synchronize()
+    fk, fp, fb = descent_fields(kernel), descent_fields(plain), descent_fields(bounded)
+    differ = {n: int((fk[n] != fp[n]).sum()) for n in fk}
+    differ_bounded = {n: int((fk[n] != fb[n]).sum()) for n in fk if n != "level"}
+    err = max(float((fk[n].double() - fp[n].double()).abs().max()) for n in fk)
+    walked = kernel.depth - d0.depth
+    return {"t": t, "differ": differ, "differ_bounded": differ_bounded, "max_abs_err": err,
+            "rows": int(d0.node.shape[0]), "descending": int(d0.descending.sum()),
+            "levels": int(walked.sum()), "deepest": int(walked.max()), "level": int(kernel.level[0])}
+
+
+def descent_bound(c: dict) -> tuple:
+    """The least time the card could take for one descent's bytes and
+    operations: ``(ms, "bytes" or "operations", bytes, operations)``."""
+    nbytes = (c["descending"] * DESCENT_ROW_BYTES + c["levels"] * DESCENT_LEVEL_BYTES + c["rows"]
+              + DESCENT_BATCH_BYTES)
+    ops = c["levels"] * 7 * DESCENT_SCORE_OPS
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes", nbytes, ops) if by_bytes >= by_ops else (by_ops, "operations", nbytes, ops)
+
+
+def time_descents(snaps: dict, config, k: int) -> dict:
+    """For each snapshot ``t -> (tree, descent)``: the descent kernel's
+    device time (the median of ``DESCENT_TIME_REPS`` launches in one
+    profiler trace, each from the snapshot), and the plain form the search
+    ran before it, ``min(t - 1, 42)`` replays of a CUDA graph of one level
+    (the median of ``LEVEL_GRAPH_REPS`` timings with CUDA events)."""
+    import statistics
+
+    import torch
+
+    from connect4_tpu_torch.mcts import batched
+    from connect4_tpu_torch.mcts.batched import PATH_MAX, _descend_level
+    from connect4_tpu_torch.scripts._common import trace_events
+    from connect4_tpu_torch.utils import trace
+
+    before = batched.descend.launches
+    work = {t: clone_descent(d0) for t, (_, d0) in snaps.items()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_descent_") as log_dir:
+        with trace(log_dir):
+            for t, (tree, d0) in snaps.items():
+                rows = torch.arange(d0.node.shape[0], device=d0.node.device)
+                for _ in range(DESCENT_TIME_REPS):
+                    restore_descent(work[t], d0)
+                    batched.descend(work[t], tree, rows, config, tree.parent.shape[1] - 1, k)
+            torch.cuda.synchronize()
+        events = trace_events(log_dir)
+    batched.descend.launches = before
+    durs = [e["dur"] for e in sorted(events, key=lambda e: e["ts"])
+            if e.get("cat") == "kernel" and "descent_kernel" in e["name"]]
+    if len(durs) != DESCENT_TIME_REPS * len(snaps):
+        fail(f"[graph] the trace holds {len(durs)} descent kernels, not {DESCENT_TIME_REPS * len(snaps)}")
+    out = {}
+    for i, (t, (tree, d0)) in enumerate(snaps.items()):
+        us = statistics.median(durs[i * DESCENT_TIME_REPS:(i + 1) * DESCENT_TIME_REPS])
+        rows = torch.arange(d0.node.shape[0], device=d0.node.device)
+        capacity = tree.parent.shape[1] - 1
+        levels = min(t - 1, PATH_MAX - 2)
+        plain = clone_descent(d0)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # the warm-up, outside the capture
+            _descend_level(plain, tree, rows, config, capacity, k)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            _descend_level(plain, tree, rows, config, capacity, k)
+        times = []
+        for _ in range(LEVEL_GRAPH_REPS):
+            restore_descent(plain, d0)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(levels):
+                graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        # the replayed levels walk what the kernel walked
+        same = all(bool((descent_fields(plain)[n] == descent_fields(work[t])[n]).all())
+                   for n in descent_fields(plain) if n != "level")
+        del graph
+        out[t] = {"ms": us / 1e3, "plain_ms": statistics.median(times), "plain_levels": levels,
+                  "plain_equal": same}
+    return out
+
+
+def level_form(search, roots, generator, active):
+    """The search as it ran before the descent kernel, on ``search``'s
+    workspace: every iteration ``min(t - 1, 42)`` levels and a tail
+    (``Search.level_iteration``; with graphs, a level graph and a tail
+    graph)."""
+    import torch
+
+    with torch.no_grad():
+        ws = search.init(roots, generator, active)
+        for t in range(1, search.config.simulations // search.config.parallel_sims + 1):
+            ws.iteration = t
+            search.level_iteration(ws)
+        return search.finish(ws, generator)
+
+
 def graph_phase(net, dev):
     """[graph]: at each of ``GRAPH_SHAPES``, the eager search twice (does it
     repeat itself?), then the graphed search twice with the same generator
-    seed: the first call warms and captures the two graphs of an iteration,
-    the second replays them under ``torch.cuda.set_sync_debug_mode
-    ("error")``, which raises on any operation that waits for the card.
-    The graphed search must equal the eager one bit for bit in moves,
-    policies, values and every tree slab (or, if the eager form does not
-    repeat itself, stay within its own spread), and its tower launches,
-    counted at replay, must equal the eager call's. A replayed search of
-    the bench shape at 64 simulations is traced for the tower kernel's
-    time inside the graph. Then a refill pool
+    seed: the first call warms and captures the graph of an iteration
+    (the descent kernel, the tail, the next descent's start), the second
+    replays it under ``torch.cuda.set_sync_debug_mode("error")``, which
+    raises on any operation that waits for the card. The graphed search
+    must equal the eager one bit for bit in moves, policies, values and
+    every tree slab (or, if the eager form does not repeat itself, stay
+    within its own spread), and also the level form (``level_form``: the
+    parent's search, a level graph replayed ``min(t - 1, 42)`` times an
+    iteration, then a tail graph); its tower launches, counted at replay,
+    must equal the eager call's, and each form must launch the descent
+    kernel once an iteration. On the trees of a search of the shape, before
+    the descents of an early, a middle and the last iteration
+    (``descent_snapshots``), the kernel must equal ``descend_plain`` until
+    no row descends in every element (``check_descent``); at the bench and
+    match shapes it is timed beside the level graphs (``time_descents``). A
+    replayed search of the bench shape at 64 simulations is traced for the
+    tower kernel's time inside the graph. Before the shapes, a pointer chase
+    (``scripts.l2_latency``) measures one dependent L2 load and an empty
+    kernel, the terms of the descent's latency floor. Then a refill pool
     (``GRAPH_SYNC_POOL``) plays twice with one play function, the second
     time under the ``"warn"`` mode: its host syncs are counted by the line
     that made them."""
@@ -1910,18 +2139,27 @@ def graph_phase(net, dev):
     from connect4_tpu_torch.env.convert import stack_boards
     from connect4_tpu_torch.env.host_board import enumerate_start_positions
     from connect4_tpu_torch.eval.evaluators import centre_evaluator_batched, make_net_evaluator
+    from connect4_tpu_torch.mcts import batched
     from connect4_tpu_torch.mcts.batched import Search
     from connect4_tpu_torch.models import tower
     from connect4_tpu_torch.models.net import init_net
+    from connect4_tpu_torch.scripts import l2_latency
     from connect4_tpu_torch.scripts._common import trace_events
     from connect4_tpu_torch.training.self_play import make_refill_play_fn
     from connect4_tpu_torch.utils import make_generator, trace
 
+    # the two terms of the descent kernel's latency floor
+    l2 = l2_latency.measure(dev)
+    log(f"[graph] one dependent L2 load (a pointer chase over {l2['mib']} MiB, {l2['steps']} loads, median of "
+        f"{l2['reps']}): {l2['round_trip_ms'] * 1e6:.1f} ns; an empty kernel {l2['empty_ms'] * 1e3:.2f} us "
+        f"(device time)")
+    if not (0 < l2["round_trip_ms"] < 1e-2 and 0 < l2["empty_ms"] < 1):
+        fail(f"[graph] the L2 round trip measured {l2}")
     evaluators = {"gen161": make_net_evaluator(net), "centre": centre_evaluator_batched}
+    out = {"l2": l2}
     for f, widths in ((256, WIDE_NET), (512, WIDER_NET)):
         fresh = init_net(NetConfig(**widths), torch.Generator().manual_seed(0), device=dev)
         evaluators[f"f{f}"] = make_net_evaluator(fresh)
-    out = {}
     for shape in GRAPH_SHAPES:
         cfg = MCTSConfig(simulations=shape["simulations"], parallel_sims=shape["parallel_sims"],
                          root_dirichlet_alpha=0.3, root_exploration_fraction=0.25, num_sampling_moves=6)
@@ -1933,57 +2171,118 @@ def graph_phase(net, dev):
             fail(f"[graph] {shape['name']}: {roots.age.shape[0]} roots")
         active = roots.result == 0
         iterations = shape["simulations"] // shape["parallel_sims"]
+        k = shape["parallel_sims"] if shape["parallel_sims"] > 1 else 0
 
-        def run(search, sync_mode=None):
+        def run(search, sync_mode=None, levels=False):
             generator = make_generator(11, dev)
             torch.cuda.synchronize()
-            before = tower.run_tower.launches
+            before = tower.run_tower.launches, batched.descend.launches
             t0 = time.perf_counter()
             if sync_mode:
                 torch.cuda.set_sync_debug_mode(sync_mode)
             try:
-                res = search(roots, generator, active)
+                res = level_form(search, roots, generator, active) if levels else search(roots, generator, active)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
-            return res, time.perf_counter() - t0, tower.run_tower.launches - before
+            return (res, time.perf_counter() - t0, tower.run_tower.launches - before[0],
+                    batched.descend.launches - before[1])
 
         evaluator = evaluators[shape["evaluator"]]
         eager = Search(evaluator, cfg, shape["sims_per_call"], graphs=False)
-        e1, e1_s, e_launches = run(eager)
-        e2, e2_s, _ = run(eager)
+        e1, e1_s, e_launches, e_descents = run(eager)
+        e2, e2_s, _, _ = run(eager)
         graphed = Search(evaluator, cfg, shape["sims_per_call"])
-        g1, g1_s, g1_launches = run(graphed)  # the warm-up and the captures
-        g2, g2_s, g_launches = run(graphed, "error")  # replays only
+        g1, g1_s, g1_launches, _ = run(graphed)  # the warm-up and the capture
+        g2, g2_s, g_launches, g_descents = run(graphed, "error")  # replays only
         (ws,) = graphed.workspaces.values()
+        by_levels = Search(evaluator, cfg, shape["sims_per_call"])
+        run(by_levels, levels=True)  # the warm-up and the captures of the level form
+        lv, lv_s, lv_launches, lv_descents = run(by_levels, levels=True)
+        (lv_ws,) = by_levels.workspaces.values()
         eager_repeats = not search_fields_differ(e1, e2)
-        differ = {k: search_fields_differ(e1, g) for k, g in (("first", g1), ("replayed", g2))}
+        differ = {k_: search_fields_differ(e1, g) for k_, g in (("first", g1), ("replayed", g2))}
+        differ_levels = search_fields_differ(g2, lv)
         spread = search_max_diff(e1, e2)
+
+        # the descent kernel against its plain version on this shape's trees
+        with torch.no_grad():
+            snaps = descent_snapshots(Search(evaluator, cfg, graphs=False), roots, make_generator(11, dev),
+                                      active)
+        checks = [check_descent(tree, d0, t, cfg, k) for t, (tree, d0) in snaps.items()]
+        times = time_descents(snaps, cfg, k) if shape["name"] in DESCENT_TIMED else {}
+        for c in checks:
+            c.update(times.get(c["t"], {}))
+            c["bound_ms"], c["bound_by"], c["bytes"], c["operations"] = descent_bound(c)
+            c["latency_floor_ms"] = (c["deepest"] + DESCENT_START_READS) * l2["round_trip_ms"] + l2["empty_ms"]
+            c["binds"] = "latency" if c["latency_floor_ms"] > c["bound_ms"] else c["bound_by"]
         r = {
             **shape, "eager_repeats": eager_repeats, "eager_spread": spread,
             "differ_first": differ["first"], "differ_replayed": differ["replayed"],
+            "differ_level_form": differ_levels,
             "max_diff_replayed": search_max_diff(e1, g2),
-            "eager_s": [e1_s, e2_s], "graphed_first_s": g1_s, "graphed_s": g2_s,
+            "eager_s": [e1_s, e2_s], "graphed_first_s": g1_s, "graphed_s": g2_s, "level_form_s": lv_s,
             "eager_iteration_ms": e2_s / iterations * 1e3, "graphed_iteration_ms": g2_s / iterations * 1e3,
-            "capture_ms": dict(ws.graphs.capture_ms), "replays": ws.graphs.replays,
-            "tower_launches": {"eager": e_launches, "graphed_first": g1_launches, "graphed": g_launches},
+            "level_form_iteration_ms": lv_s / iterations * 1e3,
+            "capture_ms": dict(ws.graphs.capture_ms), "level_form_capture_ms": dict(lv_ws.graphs.capture_ms),
+            "replays": ws.graphs.replays,
+            "tower_launches": {"eager": e_launches, "graphed_first": g1_launches, "graphed": g_launches,
+                               "level_form": lv_launches},
+            "descent_launches": {"eager": e_descents, "graphed": g_descents, "level_form": lv_descents},
+            "descent_checks": checks,
         }
         out[shape["name"]] = r
         log(f"[graph] {shape['name']} ({shape['evaluator']}, {shape['simulations']} sims, K={shape['parallel_sims']}, "
             f"{int(active.sum())} live roots): eager repeats itself {eager_repeats} (spread {spread:.3g}); graphed "
             f"against eager: first call differs in {differ['first'] or 'nothing'}, replayed call (sync debug "
-            f"mode error) differs in {differ['replayed'] or 'nothing'}; a search eager {e1_s * 1e3:.1f} / "
-            f"{e2_s * 1e3:.1f} ms, graphed first {g1_s * 1e3:.1f} ms, replayed {g2_s * 1e3:.1f} ms; an "
-            f"iteration eager {r['eager_iteration_ms']:.3f} ms, graphed {r['graphed_iteration_ms']:.3f} ms; "
-            f"captures {', '.join(f'{k} {v:.1f} ms' for k, v in r['capture_ms'].items())}; graph replays "
-            f"{ws.graphs.replays}; tower launches eager {e_launches}, graphed {g1_launches} / {g_launches}")
+            f"mode error) differs in {differ['replayed'] or 'nothing'}; against the level form: differs in "
+            f"{differ_levels or 'nothing'}; a search eager {e1_s * 1e3:.1f} / {e2_s * 1e3:.1f} ms, graphed "
+            f"first {g1_s * 1e3:.1f} ms, replayed {g2_s * 1e3:.1f} ms, level form {lv_s * 1e3:.1f} ms; an "
+            f"iteration eager {r['eager_iteration_ms']:.3f} ms, graphed {r['graphed_iteration_ms']:.3f} ms, level "
+            f"form {r['level_form_iteration_ms']:.3f} ms; captures "
+            f"{', '.join(f'{k_} {v:.1f} ms' for k_, v in r['capture_ms'].items())} (level form "
+            f"{', '.join(f'{k_} {v:.1f} ms' for k_, v in r['level_form_capture_ms'].items())}); graph replays "
+            f"{ws.graphs.replays}; tower launches eager {e_launches}, graphed {g1_launches} / {g_launches}, level "
+            f"form {lv_launches}; descent kernel launches eager {e_descents}, graphed {g_descents}, level form "
+            f"{lv_descents}")
+        for c in checks:
+            timing = (f"; kernel {c['ms'] * 1e3:.2f} us (device time, median of {DESCENT_TIME_REPS}), "
+                      f"{c['ms'] * 1e3 / max(c['deepest'], 1):.2f} us a level of the deepest row; the level form "
+                      f"{c['plain_levels']} level graph replays {c['plain_ms'] * 1e3:.1f} us (walks the same: "
+                      f"{c['plain_equal']})" if "ms" in c else "")
+            log(f"[graph] {shape['name']} descent before iteration {c['t']}: kernel against descend_plain "
+                f"until no row descends, elements that differ {c['differ']} (max |diff| {c['max_abs_err']:g}); "
+                f"against min(t-1, 42) levels {c['differ_bounded']}; {c['descending']} of {c['rows']} rows "
+                f"descend, {c['levels']} levels in all, the deepest {c['deepest']} (level {c['level']}); bound "
+                f"{c['bound_ms'] * 1e3:.4f} us by {c['bound_by']} ({c['bytes']} B, {c['operations']} "
+                f"operations), latency floor {c['latency_floor_ms'] * 1e3:.3f} us ({c['deepest']} + "
+                f"{DESCENT_START_READS} L2 round trips and an empty kernel), {c['binds']} binds{timing}")
         if eager_repeats and (differ["first"] or differ["replayed"]):
             fail(f"[graph] {shape['name']}: the graphed search differs from the eager one: {differ}")
         if not eager_repeats and not r["max_diff_replayed"] <= spread:
             fail(f"[graph] {shape['name']}: the graphed search differs from the eager one by "
                  f"{r['max_diff_replayed']}, beyond the eager form's own spread {spread}")
-        if not (e_launches == g1_launches == g_launches) or set(ws.graphs.capture_ms) != {"level", "tail"}:
-            fail(f"[graph] {shape['name']}: tower launches {r['tower_launches']}, captures {r['capture_ms']}")
+        if differ_levels:
+            fail(f"[graph] {shape['name']}: the search with the descent kernel differs from the level form: "
+                 f"{differ_levels}")
+        if not (e_launches == g1_launches == g_launches == lv_launches) or set(ws.graphs.capture_ms) != {
+                "iteration"} or set(lv_ws.graphs.capture_ms) != {"level", "tail"}:
+            fail(f"[graph] {shape['name']}: tower launches {r['tower_launches']}, captures {r['capture_ms']}, "
+                 f"level form captures {r['level_form_capture_ms']}")
+        if not (e_descents == g_descents == iterations and lv_descents == 0):
+            fail(f"[graph] {shape['name']}: descent kernel launches {r['descent_launches']}, expected "
+                 f"{iterations} a search and none in the level form")
+        for c in checks:
+            if any(c["differ"].values()) or any(c["differ_bounded"].values()) or c["max_abs_err"] != 0:
+                fail(f"[graph] {shape['name']}: the descent kernel differs from its plain version before "
+                     f"iteration {c['t']}: {c['differ']}, {c['differ_bounded']}")
+            if "ms" in c and not c["plain_equal"]:
+                fail(f"[graph] {shape['name']}: the level graphs walked elsewhere than the kernel before "
+                     f"iteration {c['t']}")
+
+    deepest = max(c["deepest"] for s in GRAPH_SHAPES for c in out[s["name"]]["descent_checks"])
+    if deepest < 3:
+        fail(f"[graph] no descent the kernel was held on went deeper than {deepest} levels")
 
     # the tower kernel inside the replayed graph, at the bench path's fan-out
     # batch (512 x 8 boards): a traced 64-simulation search of the bench
@@ -2171,7 +2470,9 @@ def main() -> int:
     from connect4_tpu_torch import build
     from connect4_tpu_torch.config import MCTSConfig
     from connect4_tpu_torch.eval.evaluators import centre_evaluator_batched, make_net_evaluator
+    from connect4_tpu_torch.mcts import batched, descent
     from connect4_tpu_torch.mcts.batched import make_search_fn
+    from connect4_tpu_torch.scripts import l2_latency
     from connect4_tpu_torch.models import tower
     from connect4_tpu_torch.models.convert import load_example_net
     from connect4_tpu_torch.models.net import fold_bn_params
@@ -2188,12 +2489,20 @@ def main() -> int:
               "device": torch.cuda.get_device_name(0)}
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {report['device']}")
 
-    # --- 1. build -----------------------------------------------------------
+    # --- 1. build: one nvcc a source, all started together ------------------
     t0 = time.perf_counter()
+    sources = (tower.SOURCE, descent.SOURCE, l2_latency.SOURCE)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        for built in [pool.submit(build.build, src) for src in sources]:
+            built.result()
     tower._library()
+    descent._library()
+    l2_latency._library()
     report["build_s"] = time.perf_counter() - t0
-    log(f"[build] tower kernels (fused and layer, one source) ready in {report['build_s']:.1f} s")
-    log(build.BUILD_LOGS.get(tower.SOURCE, "(already built)").strip())
+    log(f"[build] tower kernels (fused and layer, one source), the descent kernel and the L2 chase ready in "
+        f"{report['build_s']:.1f} s")
+    for src in sources:
+        log(build.BUILD_LOGS.get(src, f"{src}: (already built)").strip())
 
     net = load_example_net(device=dev)
     config = net.config
@@ -2297,11 +2606,15 @@ def main() -> int:
     waves = []
     torch.cuda.synchronize()
     tower.run_tower.launches = 0
+    batched.descend.launches = 0
     t0 = time.perf_counter()
     out = play(make_generator(SMOKE["seed"], dev), progress=lambda w, n: waves.append(n))
     torch.cuda.synchronize()
     t_play = time.perf_counter() - t0
     launches = tower.run_tower.launches
+    # the descent kernel's launches on the main path, by path (each read
+    # just after the path and set to 0 just before it)
+    descents = {"selfplay": batched.descend.launches}
     planes, values, policies = training_arrays(out)
     n_moves = replay_games(out)
     if int(out.mask.sum()) != n_moves or not (out.result.cpu() != 0).all():
@@ -2313,11 +2626,18 @@ def main() -> int:
         fail(f"training_arrays shapes {planes.shape} {values.shape}")
     if launches == 0:
         fail("the main path never launched the tower kernel")
+    # a wave is one search: a root forward, then an iteration's forward and
+    # descent each
+    iters = SMOKE["simulations"] // SMOKE["parallel_sims"]
+    if descents["selfplay"] == 0 or descents["selfplay"] * (iters + 1) != launches * iters:
+        fail(f"self-play launched the descent kernel {descents['selfplay']} times beside {launches} tower "
+             f"forwards: not once an iteration")
     res = out.result.cpu()
     selfplay = {
         **SMOKE, "seconds": t_play, "moves": n_moves, "waves": len(waves),
         "moves_per_s": n_moves / t_play, "sims_per_s": n_moves * SMOKE["simulations"] / t_play,
-        "tower_launches": launches, "launches_by_width": shapes.take("self-play"),
+        "tower_launches": launches, "descent_launches": descents["selfplay"],
+        "launches_by_width": shapes.take("self-play"),
         "o_wins": int((res == 1).sum()), "x_wins": int((res == 2).sum()), "draws": int((res == 3).sum()),
         "positions": int(values.shape[0]),
     }
@@ -2325,7 +2645,8 @@ def main() -> int:
     log(f"[selfplay] {SMOKE['games']} games ({selfplay['o_wins']} o / {selfplay['draws']} draw / "
         f"{selfplay['x_wins']} x), {n_moves} moves in {t_play:.2f} s over {len(waves)} waves: "
         f"{selfplay['moves_per_s']:.1f} moves/s, {selfplay['sims_per_s']:.0f} sims/s, "
-        f"tower kernel launches {launches}; all games replay on the host board")
+        f"tower kernel launches {launches}, descent kernel launches {descents['selfplay']}; all games replay "
+        f"on the host board")
 
     # --- 6.-9. the learner, the training generation, a match -------------------
     # a generator of their own: the learner's batches do not depend on how
@@ -2335,7 +2656,9 @@ def main() -> int:
     report["train_times"] = time_train_step(dev, train_gen)
     # the phase-8 run stays for the [scripts] phase, which re-evaluates it
     with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as run_dir:
+        batched.descend.launches = 0
         report["generation"] = drive_generations(dev, shapes, run_dir)
+        descents["generation"] = batched.descend.launches
         generation_launches = sum(
             g["launches"]["selfplay"] + g["launches"]["match"] for g in report["generation"]["generations"])
         generation_shapes = {}
@@ -2348,7 +2671,9 @@ def main() -> int:
         if report_boards not in times:
             fail(f"most launches of the generations are at B={report_boards}, which was not timed: "
                  f"{generation_shapes}")
+        batched.descend.launches = 0
         report["match"] = gen161_match(net, dev, shapes)
+        descents["match"] = batched.descend.launches
 
         # --- 10.-18. [wide] and [wider]: the generations at 256 and 512
         # filters, [widest] self-play at 1024; the tools, data parallelism,
@@ -2362,7 +2687,9 @@ def main() -> int:
                             ("host", lambda: host_phase(dev)), ("supervisor", supervisor_phase),
                             ("entry", lambda: entry_phase(dev)), ("dryrun", dryrun_phase)):
             t0 = time.perf_counter()
+            batched.descend.launches = 0
             report[name] = phase()
+            descents[name] = batched.descend.launches
             seconds[name] = time.perf_counter() - t0
     report["phase_seconds"] = seconds
     log("[phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
@@ -2517,6 +2844,49 @@ def main() -> int:
         "by_width": {f: {b: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                          for b, t in per.items()}
                      for f, per in layer_times.items()},
+    })
+    # the descent kernel: its launches on the counted paths (self-play, the
+    # generations with their matches, [match], [wide], [wider], [widest],
+    # the tools and the host phase; [graph]'s comparisons are not counted),
+    # its time, bound and plain form's time on the bench shape's trees
+    # before its last iteration, and its largest difference from the plain
+    # version over every snapshot of every [graph] shape
+    for path in ("selfplay", "generation", "match"):
+        if descents[path] == 0:
+            fail(f"the {path} path never launched the descent kernel: {descents}")
+    checks = {f"{name} t={c['t']}": c for name, r in report["graph"].items()
+              if isinstance(r, dict) and "descent_checks" in r for c in r["descent_checks"]}
+    t_descent = report["graph"]["bench 512x8"]["descent_checks"][-1]
+    kernels.append({
+        "name": "descent",
+        "route": "cuda",
+        "source": "connect4_tpu_torch/mcts/csrc/descent.cu",
+        # lax.while_loop (XLA) of the K-walker search, and of the K=1 search
+        # at :393; no Pallas counterpart
+        "replaces": "connect4_tpu/mcts/batched.py:874",
+        "replaces_also": "connect4_tpu/mcts/batched.py:393",
+        "launches": sum(descents.values()),
+        "launches_by_path": descents,
+        "rows": t_descent["rows"],
+        "iteration": t_descent["t"],
+        "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+        "differ": sum(sum(c["differ"].values()) + sum(c["differ_bounded"].values()) for c in checks.values()),
+        "ms": t_descent["ms"],
+        # the parent's form: min(t - 1, 42) replays of a one-level CUDA graph
+        "plain_ms": t_descent["plain_ms"],
+        "bound_ms": t_descent["bound_ms"],
+        "bound_by": t_descent["bound_by"],
+        # the chain of dependent L2 reads, which binds: (deepest row's
+        # levels + 2) L2 round trips and an empty kernel's time
+        "latency_floor_ms": t_descent["latency_floor_ms"],
+        "binds": t_descent["binds"],
+        "l2_round_trip_ms": report["graph"]["l2"]["round_trip_ms"],
+        "empty_kernel_ms": report["graph"]["l2"]["empty_ms"],
+        "library_ms": None,  # no single PyTorch call computes a descent
+        "by_snapshot": {k: {f: c[f] for f in ("ms", "plain_ms", "plain_levels", "bound_ms", "bound_by",
+                                              "latency_floor_ms", "binds", "rows", "descending", "levels",
+                                              "deepest") if f in c}
+                        for k, c in checks.items()},
     })
     smi = card()
     report["nvidia_smi"] = smi

@@ -25,17 +25,20 @@ Where the JAX code differs in kind, the port does this:
   tree slabs and the descent's buffers in place (every read of a slab
   happens before the write that would change it, as in the JAX program
   order).
-- **Loops.** ``lax.while_loop`` over the descent becomes a loop over a
-  number of levels that the host knows, ``min(t - 1, PATH_MAX - 2)`` in
+- **Loops.** ``lax.while_loop`` over the descent becomes, on the card, a
+  loop inside one hand-written kernel (``descend``): each row walks
+  from the root to its leaf in registers, its loop ending where the row's
+  does, with no host involved. On the CPU it becomes a loop over a number
+  of levels that the host knows, ``min(t - 1, PATH_MAX - 2)`` in
   iteration t (see ``Search``): levels past a row's leaf change nothing,
-  so nothing is read back from the card inside a search iteration.
+  so nothing is read back inside a search iteration either.
   ``fori_loop`` over simulations becomes a Python loop over iterations.
 - **Jit.** The jitted device program becomes CUDA graphs: on a CUDA state
-  one level of the descent and the rest of an iteration are captured once
-  a shape (``Search``, ``Workspace``) and replayed; the tree lives in a
-  workspace that every search of the shape resets in place. On the CPU,
-  or with ``graphs=False`` (the counterpart of ``jax.disable_jit``), the
-  same ops run eagerly.
+  an iteration (the descent kernel, the rest of the iteration and the next
+  descent's start) is captured once a shape (``Search``, ``Workspace``)
+  and replayed; the tree lives in a workspace that every search of the
+  shape resets in place. On the CPU, or with ``graphs=False`` (the
+  counterpart of ``jax.disable_jit``), the same ops run eagerly.
 - **Random numbers** come from one ``torch.Generator`` threaded through
   the search, outside the graphs: Dirichlet noise from
   ``torch._standard_gamma``, opening samples as ``torch.multinomial``
@@ -55,6 +58,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from connect4_tpu_torch import launches
 from connect4_tpu_torch.config import MCTSConfig
 from connect4_tpu_torch.env.core import (
     BoardState,
@@ -65,7 +69,7 @@ from connect4_tpu_torch.env.core import (
     step,
 )
 from connect4_tpu_torch.eval.evaluators import BatchedEvaluator
-from connect4_tpu_torch.models import tower
+from connect4_tpu_torch.mcts import descent
 from connect4_tpu_torch.types import HEIGHT, ONGOING, WIDTH
 
 NEG_INF = float("-inf")
@@ -260,10 +264,10 @@ def _expand_metadata(board: BoardState) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class Descent(NamedTuple):
-    """One descent of every game from its root, updated in place level by
-    level (a CUDA graph replays each level on these very buffers): column i
-    of ``path`` holds the node at depth i of a row's walk, ``capacity``
-    elsewhere."""
+    """One descent of every game from its root, updated in place (by the
+    descent kernel, or level by level; a CUDA graph replays either on these
+    very buffers): column i of ``path`` holds the node at depth i of a
+    row's walk, ``capacity`` elsewhere."""
 
     node: torch.Tensor  # int64[B] — where each row stands
     board: BoardState  # the board at ``node``
@@ -319,15 +323,36 @@ def _descend_level(d: Descent, tree: TreeArrays, rows, config, capacity, k) -> N
     d.level.add_(1)
 
 
-def _descend(tree, rows, root_state, active, config, capacity, k) -> Descent:
-    """Walk every active game from the root of ``tree`` to a childless
-    node, on fresh buffers, in ``PATH_MAX - 2`` levels: the most any
-    descent needs, since a board has at most 42 plies left."""
-    d = Descent.empty(rows.shape[0], capacity, rows.device)
-    _descent_start(d, tree, root_state, active, capacity)
-    for _ in range(PATH_MAX - 2):
+def descend_plain(d: Descent, tree: TreeArrays, rows, config, capacity, k) -> None:
+    """The descent in plain tensor code, in place: ``_descend_level`` level
+    by level until no row descends (two host reads a level), at most
+    ``PATH_MAX - 2`` levels in all, which is what the descent kernel
+    computes; both leave ``level`` at the levels the batch walked."""
+    while int(d.level[0]) < PATH_MAX - 2 and bool(d.descending.any()):
         _descend_level(d, tree, rows, config, capacity, k)
-    return d
+
+
+def descend(d: Descent, tree: TreeArrays, rows, config, capacity, k) -> None:
+    """Walk every row of ``d`` that still descends to its leaf in ``tree``,
+    in place (``rows`` is ``arange(B)``): one launch of the descent kernel
+    (``descent.launch``) for CUDA tensors, ``descend_plain`` for CPU
+    tensors; anything else raises. ``descend.launches`` counts the
+    kernel's launches, a launch captured into a CUDA graph at each replay
+    (``connect4_tpu_torch.launches``)."""
+    if d.node.device.type == "cuda":
+        descent.launch(d, tree, config, capacity, PATH_MAX, k)
+        launches.count(_record_descent)
+    elif d.node.device.type == "cpu":
+        descend_plain(d, tree, rows, config, capacity, k)
+    else:
+        raise ValueError(f"descend: no implementation for device {d.node.device}")
+
+
+descend.launches = 0
+
+
+def _record_descent() -> None:
+    descend.launches += 1
 
 
 def _expand(tree, rows, leaf, leaf_board, need_alloc, capacity) -> None:
@@ -506,7 +531,9 @@ def _simulate_parallel(
     path), so the descent runs once per game and ``_tail_parallel`` does
     the rest."""
     rows = torch.arange(root_state.age.shape[0], device=root_state.device)
-    d = _descend(tree, rows, root_state, active, config, capacity, config.parallel_sims)
+    d = Descent.empty(rows.shape[0], capacity, rows.device)
+    _descent_start(d, tree, root_state, active, capacity)
+    descend(d, tree, rows, config, capacity, config.parallel_sims)
     _tail_parallel(tree, d, rows, eval_fn=eval_fn, config=config, active=active, capacity=capacity)
     return tree
 
@@ -691,20 +718,19 @@ def _side_stream(device) -> torch.cuda.Stream:
 class _Graphs:
     """The CUDA graphs of one workspace's iteration. ``run(name, fn)`` runs
     ``fn`` eagerly the first time, on a side stream (the warm-up: it does
-    what the ops set up lazily, such as cuBLAS's workspace and the tower
-    kernel's build and attributes, outside any capture), captures it the
-    second time
-    and replays the capture from then on, on the current stream. The graphs
-    share one memory pool: they run one after another and pass nothing but
-    the workspace's own buffers. A failed capture raises. The tower
-    forwards a graph holds are counted at each replay
-    (``tower.count_launches``)."""
+    what the ops set up lazily, such as cuBLAS's workspace and the kernels'
+    builds and attributes, outside any capture), captures it the second
+    time and replays the capture from then on, on the current stream. The
+    graphs share one memory pool: they run one after another and pass
+    nothing but the workspace's own buffers. A failed capture raises. The
+    kernel launches a graph holds are counted at each replay
+    (``connect4_tpu_torch.launches``)."""
 
     def __init__(self, device):
         self.stream = _side_stream(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.graph = {}
-        self.launches = {}  # name -> the tower forwards captured
+        self.launches = {}  # name -> the log of the kernel launches captured
         self.capture_ms = {}  # name -> ms the capture took
         self.replays = 0
         self._warm = set()
@@ -722,14 +748,14 @@ class _Graphs:
                 return
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
-            with tower.captured_launches() as log, torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            with launches.captured() as log, torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
                 fn()
             self.capture_ms[name] = (time.perf_counter() - t0) * 1e3
             current.wait_stream(self.stream)
             self.graph[name], self.launches[name] = graph, log
         graph.replay()
         self.replays += 1
-        tower.count_launches(self.launches[name])
+        launches.replay(self.launches[name])
 
 
 class Workspace:
@@ -765,14 +791,19 @@ class Search:
     ``finish`` (the counterpart of the JAX package's jitted ``run`` and of
     its chunked ``init``, ``segment`` and ``finish``).
 
-    Iteration t of a search (counted from 1 since ``init``) descends
-    ``min(t - 1, PATH_MAX - 2)`` levels, a count the host knows: an
-    iteration allocates at most one child block a game, so before iteration
-    t no expanded node is deeper than t - 1, and no board has more than 42
-    plies left; the levels past a row's leaf change nothing. So nothing in
-    an iteration reads the card from the host. (A ``max_nodes`` below
+    On a CUDA state an iteration is ``iteration``: one launch of the
+    descent kernel walks every row to its leaf on the card, then the rest
+    of the iteration (expansion, evaluation, backup) and the next
+    descent's start. On a CPU state it is ``level_iteration``: iteration t
+    (counted from 1 since ``init``) descends ``min(t - 1, PATH_MAX - 2)``
+    levels, a count the host knows: an iteration allocates at most one
+    child block a game, so before iteration t no expanded node is deeper
+    than t - 1, and no board has more than 42 plies left; the levels past a
+    row's leaf change nothing. So nothing in an iteration reads the tensors
+    from the host, on either device. (A ``max_nodes`` below
     ``tree_capacity()`` can exhaust the slab; blocks allocated after that
-    reuse the last one and the bound no longer holds.)
+    reuse the last one and the bound no longer holds.) Both forms walk the
+    same rows to the same leaves.
 
     ``active`` masks games (finished games in lockstep self-play): inactive
     games' tree updates are suppressed and their outputs are defined but
@@ -783,12 +814,12 @@ class Search:
     Each (device, batch) gets a ``Workspace`` at first use, kept in
     ``workspaces`` for the life of this object, so a new search object
     frees its predecessor's. With ``graphs`` (the default) a CUDA state's
-    iteration runs from two CUDA graphs, each captured at its second call
-    in the first search of the shape (the first call runs eagerly as its
-    warm-up): one level of the descent, replayed level by level, and the
-    rest of the iteration with the next descent's start, replayed once. ``graphs=False``, which only a
-    caller chooses, runs the same ops eagerly; so does a CPU state. The two
-    forms compute the same ops in the same order, so the same results."""
+    iteration is one CUDA graph, captured at its second call in the first
+    search of the shape (the first call runs eagerly as its warm-up) and
+    replayed once an iteration. ``graphs=False``, which only a caller
+    chooses, runs the same ops eagerly, the descent kernel included; so
+    does a CPU state. The two forms compute the same ops in the same
+    order, so the same results."""
 
     def __init__(self, eval_fn: BatchedEvaluator, config: MCTSConfig,
                  sims_per_call: Optional[int] = None, graphs: bool = True):
@@ -822,33 +853,56 @@ class Search:
 
     @torch.no_grad()
     def segment(self, ws: Workspace) -> None:
-        """Advance the search by ``sims_per_call`` simulations."""
+        """Advance the search by ``sims_per_call`` simulations, an
+        ``iteration`` at a time on a CUDA workspace, a ``level_iteration``
+        on a CPU one."""
         K = self.config.parallel_sims
         if K > 1 and self.sims_per_call % K:
             raise ValueError("simulations must be divisible by parallel_sims")
+        step = self.iteration if ws.rows.is_cuda else self.level_iteration
         for _ in range(self.sims_per_call // K):
             ws.iteration += 1
-            for _ in range(min(ws.iteration - 1, PATH_MAX - 2)):
-                self.level(ws)
-            self.tail(ws)
+            step(ws)
+
+    def iteration(self, ws: Workspace) -> None:
+        """One iteration: the descent kernel walks every row to its leaf,
+        then the rest of the iteration and the next descent's start."""
+        def iteration():
+            descend(ws.descent, ws.tree, ws.rows, self.config, ws.capacity, self._k)
+            self._tail_and_start(ws)
+
+        self._run(ws, "iteration", iteration)
+
+    def level_iteration(self, ws: Workspace) -> None:
+        """One iteration as ``min(t - 1, PATH_MAX - 2)`` descent levels and
+        the tail (t = ``ws.iteration``): the CPU's form. On the card, with
+        graphs, it replays a level graph and a tail graph: the form the
+        descent kernel is held against."""
+        for _ in range(min(ws.iteration - 1, PATH_MAX - 2)):
+            self.level(ws)
+        self.tail(ws)
 
     def level(self, ws: Workspace) -> None:
         """One level of the descent."""
-        K = self.config.parallel_sims
         self._run(ws, "level", lambda: _descend_level(
-            ws.descent, ws.tree, ws.rows, self.config, ws.capacity, K if K > 1 else 0))
+            ws.descent, ws.tree, ws.rows, self.config, ws.capacity, self._k))
 
     def tail(self, ws: Workspace) -> None:
         """The rest of an iteration after its descent, then the next
         descent's start."""
+        self._run(ws, "tail", lambda: self._tail_and_start(ws))
+
+    @property
+    def _k(self) -> int:
+        """The descent's overlay: K walkers, or 0 for the exact score."""
+        K = self.config.parallel_sims
+        return K if K > 1 else 0
+
+    def _tail_and_start(self, ws: Workspace) -> None:
         tail = _tail_parallel if self.config.parallel_sims > 1 else _tail_exact
-
-        def tail_and_start():
-            tail(ws.tree, ws.descent, ws.rows, eval_fn=self.eval_fn, config=self.config, active=ws.active,
-                 capacity=ws.capacity)
-            _descent_start(ws.descent, ws.tree, ws.root, ws.active, ws.capacity)
-
-        self._run(ws, "tail", tail_and_start)
+        tail(ws.tree, ws.descent, ws.rows, eval_fn=self.eval_fn, config=self.config, active=ws.active,
+             capacity=ws.capacity)
+        _descent_start(ws.descent, ws.tree, ws.root, ws.active, ws.capacity)
 
     @staticmethod
     def _run(ws: Workspace, name: str, fn) -> None:

@@ -11,9 +11,9 @@ policy heads on its output; ``forward`` chains them.
 tensor, and takes the plain version ``tower_plain`` only for a CPU tensor.
 It never falls back: a CUDA input that the kernel does not take raises.
 ``run_tower.launches`` counts kernel launches, ``run_tower.by_shape`` the
-same by packed width and batch. A forward captured into a CUDA graph
-(``captured_launches``) is counted where the graph replays it
-(``count_launches``), not where it is captured.
+same by packed width and batch. A forward captured into a CUDA graph is
+counted where the graph replays it, not where it is captured
+(``connect4_tpu_torch.launches``).
 
 The kernel (see the header of ``csrc/tower.cu``) keeps a tile of 3 boards
 resident in shared memory across all layers and runs every conv as 9
@@ -62,7 +62,6 @@ epilogue does; tanh and softmax run in float32.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import os
 from typing import Dict, Tuple
@@ -70,6 +69,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from connect4_tpu_torch import launches
 from connect4_tpu_torch.build import load_library
 from connect4_tpu_torch.config import NetConfig
 from connect4_tpu_torch.models.net import lrelu
@@ -505,7 +505,7 @@ def _tower_cuda(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) 
                 err = lib.c4_tower_forward_chain(*args, CHAINS.index(chain), stream)
             if err != 0:
                 raise RuntimeError(f"tower kernel launch failed with cudaError {err} (F {f}, chain {chain})")
-    _count(f, rows // AREA, layer_launches)
+    launches.count(_record, f, rows // AREA, layer_launches)
     return out
 
 
@@ -554,42 +554,14 @@ run_tower.launches = 0
 run_tower.layer_launches = 0
 run_tower.by_shape = {}
 
-# the launch logs of the CUDA graphs being captured, innermost last
-_CAPTURING = []
-
-
-def _count(f: int, boards: int, layer_launches: int) -> None:
-    """Count one tower forward on the card at packed width ``f`` (with the
-    layer kernel's launches in it), or, while a CUDA graph is captured,
-    log it for the graph's replays instead: a captured launch runs only
-    when the graph is replayed."""
-    if _CAPTURING:
-        _CAPTURING[-1].append((f, boards, layer_launches))
-        return
+def _record(f: int, boards: int, layer_launches: int) -> None:
+    """Count one tower forward on the card at packed width ``f``, with the
+    layer kernel's launches in it (through ``launches.count``, so a
+    forward captured into a CUDA graph counts at each replay)."""
     run_tower.launches += 1
     run_tower.layer_launches += layer_launches
     per = run_tower.by_shape.setdefault(f, {})
     per[boards] = per.get(boards, 0) + 1
-
-
-@contextlib.contextmanager
-def captured_launches():
-    """Around the capture of a CUDA graph: yields the list that logs the
-    tower forwards captured, ``[(packed width, boards, layer launches)]``,
-    which are not counted; ``count_launches`` counts them at each replay."""
-    log = []
-    _CAPTURING.append(log)
-    try:
-        yield log
-    finally:
-        _CAPTURING.pop()
-
-
-def count_launches(log) -> None:
-    """Count the forwards of ``log`` (from ``captured_launches``), once for
-    a replay of the graph they were captured into."""
-    for f, boards, layer_launches in log:
-        _count(f, boards, layer_launches)
 
 
 # ---------------------------------------------------------------------------

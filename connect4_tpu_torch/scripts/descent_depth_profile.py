@@ -4,10 +4,10 @@ The counterpart of the JAX package's ``scripts/descent_depth_profile.py``,
 which measures the two quantities that decide whether age-banded search
 calls could cut the self-play tree walk:
 
-1. **Descent depth by board age.** A search iteration descends every row
-   until the deepest one reaches a leaf (here every row walks the
-   ``min(t - 1, 42)`` levels of iteration t that bound every row's
-   depth), so in a mixed-age pool every row pays for the young rows' depth.
+1. **Descent depth by board age.** In the JAX search an iteration
+   descends every row until the deepest one reaches a leaf, so in a
+   mixed-age pool every row pays for the young rows' depth (on the card
+   the port's descent kernel walks each row only to its own leaf).
    For boards still in play after 2, 8, ... 32 random plies: the depth the
    descent reaches (mean / p95 / max) after the first and after the last
    ``sims_per_call`` segment.
@@ -32,7 +32,7 @@ import torch
 
 from connect4_tpu_torch.config import MCTSConfig
 from connect4_tpu_torch.env.core import BoardState
-from connect4_tpu_torch.mcts.batched import Search, TreeArrays, _descend
+from connect4_tpu_torch.mcts.batched import Descent, Search, TreeArrays, _descent_start, descend
 from connect4_tpu_torch.scripts import _common
 from connect4_tpu_torch.utils import make_generator, resolve_device
 
@@ -42,11 +42,15 @@ POOL_ROWS = (32, 64, 128, 256, 512)
 
 def measure_depth(tree: TreeArrays, state: BoardState, config: MCTSConfig) -> torch.Tensor:
     """The depth each row's descent reaches in ``tree`` (a workspace's
-    slabs, dump column included: the search's own descent, K walkers'
-    constant overlay included), as ``[rows]``."""
+    slabs, dump column included), scored with K walkers' constant overlay
+    as the JAX script scores it, as ``[rows]``: the descent kernel on the
+    card, its plain version on the CPU (``batched.descend``)."""
     rows = torch.arange(state.age.shape[0], device=state.device)
-    active = torch.ones_like(rows, dtype=torch.bool)
-    return _descend(tree, rows, state, active, config, config.tree_capacity(), config.parallel_sims).depth
+    capacity = config.tree_capacity()
+    d = Descent.empty(rows.shape[0], capacity, state.device)
+    _descent_start(d, tree, state, torch.ones_like(rows, dtype=torch.bool), capacity)
+    descend(d, tree, rows, config, capacity, config.parallel_sims)
+    return d.depth
 
 
 def _stats(depth: torch.Tensor):

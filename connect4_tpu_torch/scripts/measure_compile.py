@@ -6,22 +6,24 @@ script times trace, lowering and XLA compilation of the search programs
 simulations, ``_finish``) at ``--slots`` rows, ``--sims`` simulations and
 ``--parallel-sims`` walkers with a fresh F=64 / fc 6 / res 6 bf16 net, then
 one whole refill generation of 4 x ``--slots`` games. The port compiles
-its kernel and, on the card, captures the CUDA graphs of a search
+its kernels and, on the card, captures the CUDA graph of a search
 iteration once a shape (``mcts.batched.Search``), so this tool times what
 a fresh process pays instead, phase by phase:
 
 1. the interpreter's start and ``import torch``;
 2. the CUDA context (the first allocation on the card);
 3. importing the port's modules;
-4. a cold ``nvcc`` build of the tower kernel (``models/csrc/tower.cu``)
-   into a throwaway directory, so ``build/kernels/`` is neither read nor
-   written, with the ptxas report;
-5. loading that library with ``ctypes``; the programs below launch it;
+4. a cold ``nvcc`` build of the kernels (the tower's
+   ``models/csrc/tower.cu`` and the descent's ``mcts/csrc/descent.cu``,
+   one after the other) into a throwaway directory, so ``build/kernels/``
+   is neither read nor written, with the ptxas report;
+5. loading those libraries with ``ctypes``; the programs below launch
+   them;
 6. the first call of each of the three parts of a search
    (``Search.init``, ``segment``, ``finish``) against a warm call (the
-   first launches load the kernel's module, initialise cuBLAS for the
+   first launches load the kernels' modules, initialise cuBLAS for the
    heads and fill PyTorch's caching allocator; the first segment also
-   warms and captures the iteration's two graphs, whose capture times are
+   warms and captures the iteration's graph, whose capture time is
    reported for the shape);
 7. the whole refill generation, its first call against a second one,
    with the capture times of every pool width it met (its search's
@@ -109,6 +111,7 @@ def child(params_json: str, started_at: float) -> None:
     from connect4_tpu_torch.config import MCTSConfig, NetConfig
     from connect4_tpu_torch.env.core import initial_state
     from connect4_tpu_torch.eval.evaluators import make_net_evaluator
+    from connect4_tpu_torch.mcts import descent
     from connect4_tpu_torch.mcts.batched import Search
     from connect4_tpu_torch.models import tower
     from connect4_tpu_torch.models.net import init_net
@@ -128,14 +131,18 @@ def child(params_json: str, started_at: float) -> None:
         out["cuda_context_s"] = time.perf_counter() - t
         with tempfile.TemporaryDirectory(prefix="measure_compile_") as tmp:
             toolchain = build.NVCC._replace(build_dir=tmp)
+            sources = (tower.SOURCE, descent.SOURCE)
             t = time.perf_counter()
-            build.build(tower.SOURCE, toolchain)
+            for source in sources:
+                build.build(source, toolchain)
             out["nvcc_build_s"] = time.perf_counter() - t
-            out["ptxas"] = [line.strip() for line in build.BUILD_LOGS[tower.SOURCE].splitlines()
+            out["ptxas"] = [line.strip() for source in sources for line in build.BUILD_LOGS[source].splitlines()
                             if "ptxas" in line]
             t = time.perf_counter()
-            build.load_library(tower.SOURCE, toolchain)  # what tower._library() returns from now on
+            for source in sources:  # what tower._library() and descent._library() return from now on
+                build.load_library(source, toolchain)
             tower._library()
+            descent._library()
             out["library_load_s"] = time.perf_counter() - t
         out["not_run"] = None
     else:

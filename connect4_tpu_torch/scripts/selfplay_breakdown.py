@@ -15,9 +15,13 @@ cuDNN's algorithm search and the graphs' capture stay out of the times):
    segment's forwards are counted (one forward a search iteration);
 3. the wave with and without those per-part synchronisations, and a
    search iteration's mean;
-4. one level of the descent and one iteration's tail (expansion,
-   evaluation, backup), each timed over repeated calls on the tree the
-   wave left; the graphed form also reports each graph's capture;
+4. one iteration's tail (expansion, evaluation, backup, the next
+   descent's start), timed over repeated calls on the tree the wave left
+   (in the graphed form a graph of its own, captured before the timed
+   calls), and the descent: on the card the descent kernel's device time an
+   iteration (its mean over the traced segment of 5.), on the CPU, whose
+   iterations descend level by level, one level timed as the tail is; the
+   graphed form also reports each graph's capture;
 5. the card's busy share over one traced segment (``utils.trace``: the
    kernels' and copies' union over the segment's wall-clock), against the
    untraced segment's time as well;
@@ -48,8 +52,9 @@ from connect4_tpu_torch.scripts import _common
 from connect4_tpu_torch.types import ONGOING
 from connect4_tpu_torch.utils import make_generator, resolve_device, trace
 
-# calls a part of an iteration is timed over: a whole descent's levels
-# (the most one walks, so the level counter stays in its path), 10 tails
+# calls a part of an iteration is timed over, on the tree the last wave
+# left: 10 tails and, on the CPU only, a whole descent's levels (the most
+# one walks, so the level counter stays in its path)
 PART_REPS = {"level": PATH_MAX - 2, "tail": 10}
 
 
@@ -63,6 +68,8 @@ def _form(search: Search, state: BoardState, active, waves: int, generator: torc
     search(state, generator, active)  # warm-up, and the graphs' capture
     _common.sync(device)
     warm_s = time.perf_counter() - t0
+    graphs = search.workspaces[device, state.age.shape[0]].graphs
+    captures = None if graphs is None else dict(graphs.capture_ms)  # before the tail's own, below
 
     per = {"init": 0.0, "segments": 0.0, "finish": 0.0}
     seg_times = []
@@ -85,12 +92,17 @@ def _form(search: Search, state: BoardState, active, waves: int, generator: torc
     res, unsynced = _common.timed(unsynced_waves, device)
     unsynced /= waves
 
-    # a level and a tail, on the tree the last wave left (the next init
-    # resets it)
+    # a tail and, on the CPU, a level, on the tree the last wave left (the
+    # next init resets it)
     ws = search.workspaces[device, state.age.shape[0]]
-    part_ms = {}
+    part_ms = dict.fromkeys(PART_REPS)
     for name, reps in PART_REPS.items():
+        if name == "level" and device.type == "cuda":
+            continue  # the card descends by the kernel, timed in the trace below
         part = getattr(search, name)
+        if ws.graphs is not None:  # its graph's warm-up and capture stay out of the time
+            part(ws)
+            part(ws)
         _, dt = _common.timed(lambda: [part(ws) for _ in range(reps)], device)
         part_ms[name] = dt / reps * 1e3
 
@@ -106,6 +118,7 @@ def _form(search: Search, state: BoardState, active, waves: int, generator: torc
             traced_s = time.perf_counter() - t_start
         events = _common.trace_events(log_dir)
     busy_ms = _common.device_busy_ms(events)
+    descent_us = [e["dur"] for e in events if e.get("cat") == "kernel" and "descent_kernel" in e["name"]]
     seg_mean = float(np.mean(seg_times))
     out = {
         "warm_s": warm_s,
@@ -114,6 +127,8 @@ def _form(search: Search, state: BoardState, active, waves: int, generator: torc
         "segment_ms": [t * 1e3 for t in seg_times[:n_segments]],
         "blocking_wave_ms": blocking * 1e3, "unsynced_wave_ms": unsynced * 1e3,
         "iteration_ms": per["segments"] / waves / iterations * 1e3,
+        "descent_ms": float(np.mean(descent_us)) / 1e3 if descent_us else None,
+        "descent_launches_traced": len(descent_us),
         "level_ms": part_ms["level"], "tail_ms": part_ms["tail"],
         "share": {k: v / waves / blocking for k, v in per.items()},
         "traced_segment_ms": traced_s * 1e3,
@@ -123,7 +138,7 @@ def _form(search: Search, state: BoardState, active, waves: int, generator: torc
         "sims_per_s": state.age.shape[0] * search.config.simulations / unsynced,
     }
     if ws.graphs is not None:
-        out["capture_ms"] = dict(ws.graphs.capture_ms)
+        out["capture_ms"] = captures
         out["replays"] = ws.graphs.replays
     return out, res
 
@@ -183,6 +198,15 @@ def breakdown(
     return out
 
 
+def _descent(r: dict) -> str:
+    if r["descent_ms"] is not None:
+        return (f"the descent kernel {r['descent_ms'] * 1e3:.2f} us an iteration (device time, "
+                f"{r['descent_launches_traced']} launches in the traced segment)")
+    if r["level_ms"] is not None:
+        return f"one descent level (the CPU's form) {r['level_ms']:.3f} ms"
+    return "the descent kernel: not measured (no card in the trace)"
+
+
 def report(r: dict) -> None:
     print(f"setup: {r['live_rows']}/{r['slots']} boards live; warm-up {r['warm_s']:.1f} s on {r['device']}")
     print(f"eval forward [{r['eval_batch']}]: {r['eval_ms']:.2f} ms")
@@ -206,15 +230,14 @@ def report(r: dict) -> None:
            f"{r['device_busy_ms']:.1f} ms of {r['traced_segment_ms']:.1f} ms traced = {busy:.1%} "
            f"({r['device_busy_share_of_untraced']:.1%} of an untraced segment)")
     )
-    print(f"per iteration {r['iteration_ms']:.2f} ms; one descent level {r['level_ms']:.3f} ms, one tail "
-          f"{r['tail_ms']:.3f} ms")
+    print(f"per iteration {r['iteration_ms']:.2f} ms; {_descent(r)}, one tail {r['tail_ms']:.3f} ms")
     g = r["graphed"]
     if g is None:
         print("graphed form: not run (no CUDA graphs on the CPU)")
     else:
         print(f"graphed form: warm-up and capture {g['warm_s']:.2f} s (captures {g['capture_ms']} ms); wave "
               f"{g['unsynced_wave_ms']:.1f} ms, blocking {g['blocking_wave_ms']:.1f} ms; per iteration "
-              f"{g['iteration_ms']:.2f} ms; one level {g['level_ms']:.3f} ms, one tail {g['tail_ms']:.3f} ms; "
+              f"{g['iteration_ms']:.2f} ms; {_descent(g)}, one tail {g['tail_ms']:.3f} ms; "
               f"device busy {g['device_busy_share']} of a traced segment; {g['sims_per_s']:,.0f} sims/s")
     if "mfu" in r:
         print(

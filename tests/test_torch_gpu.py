@@ -2,8 +2,9 @@
 plain PyTorch versions on the card, the train step on the card against the
 CPU, the data-parallel step of two ranks sharing the card against one
 process, the solver's build on the machine with the card,
-``scripts.evaluate_posn`` on the card against the CPU, and the search
-replayed from CUDA graphs against its eager form. They skip
+``scripts.evaluate_posn`` on the card against the CPU, the search
+replayed from CUDA graphs against its eager form and against the level
+form, and the descent kernel against its plain version. They skip
 where there is no card. This file imports neither JAX nor the JAX package:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu
@@ -298,6 +299,19 @@ def test_evaluate_posn_on_card_matches_cpu(tmp_path):
     assert sum(card["root_visits"]) == 64
 
 
+def _search_roots(rows, seed):
+    """``rows`` boards after up to 30 random plies on the card, finished
+    ones masked inactive."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    state = initial_state((rows,), device="cuda")
+    plies = torch.randint(0, 30, (rows,), generator=g, device="cuda")
+    for t in range(30):
+        legal = legal_moves(state)
+        move = torch.multinomial(torch.where(legal.any(-1, keepdim=True), legal.float(), 1.0), 1, generator=g)[:, 0]
+        state = step(state, move, t < plies)
+    return state, state.result == 0
+
+
 def _search_results_equal(a, b):
     for name in ("move", "value", "values_policy", "visit_policy", "root_value"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
@@ -321,14 +335,7 @@ def test_graphed_search_equals_eager_on_card(rows, k, sims):
     from connect4_tpu_torch.eval.evaluators import make_net_evaluator
     from connect4_tpu_torch.mcts.batched import Search
 
-    g = torch.Generator(device="cuda").manual_seed(rows)
-    state = initial_state((rows,), device="cuda")
-    plies = torch.randint(0, 30, (rows,), generator=g, device="cuda")
-    for t in range(30):
-        legal = legal_moves(state)
-        move = torch.multinomial(torch.where(legal.any(-1, keepdim=True), legal.float(), 1.0), 1, generator=g)[:, 0]
-        state = step(state, move, t < plies)
-    active = state.result == 0
+    state, active = _search_roots(rows, rows)
     config = MCTSConfig(simulations=sims, parallel_sims=k, root_dirichlet_alpha=0.3,
                         root_exploration_fraction=0.25, num_sampling_moves=6)
     evaluator = make_net_evaluator(load_example_net(device="cuda"))
@@ -355,7 +362,102 @@ def test_graphed_search_equals_eager_on_card(rows, k, sims):
     _search_results_equal(e1, g2)
     assert e_launches == g1_launches == g2_launches == 1 + sims // k
     (ws,) = graphed.workspaces.values()
-    assert set(ws.graphs.graph) == {"level", "tail"}
+    assert set(ws.graphs.graph) == {"iteration"}
+
+
+def _level_form(search, state, generator, active):
+    """The search with every iteration's descent as ``min(t - 1, 42)``
+    levels (``Search.level_iteration``: with graphs, a level graph and a
+    tail graph), as it ran before the descent kernel."""
+    with torch.no_grad():
+        ws = search.init(state, generator, active)
+        for t in range(1, search.config.simulations // search.config.parallel_sims + 1):
+            ws.iteration = t
+            search.level_iteration(ws)
+        return search.finish(ws, generator)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, k, sims", [(512, 8, 64), (49, 1, 32)])
+def test_graphed_search_equals_the_level_form_on_card(rows, k, sims):
+    """The graphed search, whose iterations launch the descent kernel once
+    each, against the level form on the card (the search's descent as
+    replays of a one-level graph), gen-161, noise and sampling on: bit for
+    bit, with as many tower launches, and the kernel launched once an
+    iteration by the one and never by the other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from connect4_tpu_torch.config import MCTSConfig
+    from connect4_tpu_torch.eval.evaluators import make_net_evaluator
+    from connect4_tpu_torch.mcts import batched
+    from connect4_tpu_torch.mcts.batched import Search
+
+    state, active = _search_roots(rows, rows + 1)
+    config = MCTSConfig(simulations=sims, parallel_sims=k, root_dirichlet_alpha=0.3,
+                        root_exploration_fraction=0.25, num_sampling_moves=6)
+    evaluator = make_net_evaluator(load_example_net(device="cuda"))
+    out = {}
+    for form in ("kernel", "levels"):
+        search = Search(evaluator, config)
+        for call in range(2):  # the warm-up and captures, then replays
+            generator = torch.Generator(device="cuda").manual_seed(1)
+            before = tower.run_tower.launches, batched.descend.launches
+            res = search(state, generator, active) if form == "kernel" else _level_form(search, state, generator,
+                                                                                        active)
+            torch.cuda.synchronize()
+            out[form, call] = res, tower.run_tower.launches - before[0], batched.descend.launches - before[1]
+        (ws,) = search.workspaces.values()
+        assert set(ws.graphs.graph) == ({"iteration"} if form == "kernel" else {"level", "tail"})
+    for call in range(2):
+        (a, a_towers, a_descents), (b, b_towers, b_descents) = out["kernel", call], out["levels", call]
+        _search_results_equal(a, b)
+        assert a_towers == b_towers == 1 + sims // k
+        assert (a_descents, b_descents) == (sims // k, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows, k, sims", [(512, 8, 200), (49, 1, 64)])
+def test_descent_kernel_equals_plain_on_card(rows, k, sims):
+    """On the trees of a search on the card (gen-161, noise on), before
+    the descent of every iteration after the first: the descent kernel
+    equals ``descend_plain`` until no row descends in every field of the
+    descent (leaf, board, flags, path, depth, levels walked), and the
+    level form, ``min(t - 1, 42)`` levels, walks the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from connect4_tpu_torch.config import MCTSConfig
+    from connect4_tpu_torch.eval.evaluators import make_net_evaluator
+    from connect4_tpu_torch.mcts import batched
+
+    def clone(d):
+        return batched.Descent(d.node.clone(), d.board.map(torch.clone), d.descending.clone(), d.path.clone(),
+                               d.depth.clone(), d.level.clone())
+
+    def fields(d):
+        return [d.node, *d.board, d.descending, d.path, d.depth, d.level]
+
+    state, active = _search_roots(rows, rows + 2)
+    config = MCTSConfig(simulations=sims, parallel_sims=k, root_dirichlet_alpha=0.3,
+                        root_exploration_fraction=0.25, num_sampling_moves=6)
+    search = batched.Search(make_net_evaluator(load_example_net(device="cuda")), config, graphs=False)
+    kk = k if k > 1 else 0
+    deepest = 0
+    with torch.no_grad():
+        ws = search.init(state, torch.Generator(device="cuda").manual_seed(1), active)
+        for t in range(1, sims // k + 1):
+            ws.iteration = t
+            if t > 1:
+                kernel, plain, bounded = clone(ws.descent), clone(ws.descent), clone(ws.descent)
+                batched.descend(kernel, ws.tree, ws.rows, config, ws.capacity, kk)
+                batched.descend_plain(plain, ws.tree, ws.rows, config, ws.capacity, kk)
+                for _ in range(min(t - 1, batched.PATH_MAX - 2)):
+                    batched._descend_level(bounded, ws.tree, ws.rows, config, ws.capacity, kk)
+                for i, (x, y, z) in enumerate(zip(fields(kernel), fields(plain), fields(bounded))):
+                    assert torch.equal(x, y), (t, i)
+                    assert i == 8 or torch.equal(x, z), (t, i)  # the bounded form's level is its own
+                deepest = max(deepest, int(kernel.depth.max()))
+            search.iteration(ws)
+    assert deepest >= 3
 
 
 @pytest.mark.gpu

@@ -1,9 +1,12 @@
 """The search as a device program (``connect4_tpu_torch.mcts.batched.Search``)
 on the CPU: every iteration descends the number of levels the host knows,
 ``min(t - 1, PATH_MAX - 2)``, with no read of the tensors in between, on a
-workspace that every search of a shape resets in place. On the card the
-same ops are captured into CUDA graphs (``tests/test_torch_gpu.py`` holds
-the graphed search to the eager one there); here they run eagerly.
+workspace that every search of a shape resets in place. On the card an
+iteration is one CUDA graph whose descent is one launch of the descent
+kernel (``tests/test_torch_gpu.py`` holds the graphed search to the eager
+one and to this level form there; ``tests/test_torch_descent.py`` holds the
+kernel's plain version to the JAX descent); here the level form runs
+eagerly.
 
 Held: the sync-free search against the loop that stops each descent when
 no row descends any more (one host read a level, as the search ran before
@@ -23,6 +26,7 @@ from connect4_tpu.config import MCTSConfig as JMCTSConfig
 from connect4_tpu.env.convert import stack_boards as jstack_boards
 from connect4_tpu.eval.evaluators import centre_evaluator_batched as jcentre
 from connect4_tpu.mcts import batched as jb
+from connect4_tpu_torch import launches
 from connect4_tpu_torch.config import MCTSConfig, NetConfig
 from connect4_tpu_torch.env.convert import stack_boards
 from connect4_tpu_torch.eval.evaluators import centre_evaluator_batched, make_net_evaluator
@@ -207,17 +211,20 @@ def test_opening_samples_are_multinomial_draws():
     assert torch.equal(res.move.long(), torch.multinomial(probs, 1, generator=_gen(7))[:, 0])
 
 
-def test_captured_launches_count_at_replay():
+def test_captured_launches_count_at_replay(monkeypatch):
     """A tower forward made while a graph is captured is logged, not
-    counted; each replay counts the log, by packed width and batch."""
-    tower.run_tower.by_shape = {}
+    counted; each replay counts the log, by packed width and batch. The
+    counters are the process's own, so they are restored afterwards for
+    the tests that read them."""
+    for name, value in (("launches", 0), ("layer_launches", 0), ("by_shape", {})):
+        monkeypatch.setattr(tower.run_tower, name, value)
     before = tower.run_tower.launches, tower.run_tower.layer_launches
-    with tower.captured_launches() as log:
-        tower._count(64, 512, 0)
-        tower._count(512, 49, 13)
-    assert log == [(64, 512, 0), (512, 49, 13)]
+    with launches.captured() as log:
+        launches.count(tower._record, 64, 512, 0)
+        launches.count(tower._record, 512, 49, 13)
+    assert log == [(tower._record, (64, 512, 0)), (tower._record, (512, 49, 13))]
     assert (tower.run_tower.launches, tower.run_tower.layer_launches) == before and tower.run_tower.by_shape == {}
     for _ in range(3):
-        tower.count_launches(log)
+        launches.replay(log)
     assert tower.run_tower.launches == before[0] + 6 and tower.run_tower.layer_launches == before[1] + 39
     assert tower.run_tower.by_shape == {64: {512: 3}, 512: {49: 3}}
