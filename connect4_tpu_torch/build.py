@@ -4,8 +4,9 @@ Each source has a plain C interface and is opened with ``ctypes``. Two
 toolchains build them:
 
 - ``NVCC``: the CUDA kernels of ``models/csrc/*.cu`` (the tower),
-  ``mcts/csrc/*.cu`` (the search's descent) and ``scripts/csrc/*.cu`` (a
-  measurement's), for ``sm_90a``, into ``build/kernels/``;
+  ``mcts/csrc/*.cu`` (the search's descent, and the spans' marks of
+  ``launches``) and ``scripts/csrc/*.cu`` (a measurement's), for
+  ``sm_90a``, into ``build/kernels/``;
 - ``GXX``: the exact solver ``native/solver.cpp``, for the host's CPU
   (``-march=native``), into ``build/native/``.
 

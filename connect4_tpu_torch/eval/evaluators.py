@@ -12,11 +12,16 @@ sequential reference search (``mcts.host``) and ``eval.grid_search``.
   uniform), in float32 as in the JAX package, so search trees can be
   compared across the two packages and between the host and batched search.
 - ``make_net_evaluator``: a network forward on the planes of the leaf
-  boards. With ``fold_bn=True`` and a bf16 net it runs the folded tower
+  boards, in two stages (``stages``): the planes and the tower, then the
+  heads. With ``fold_bn=True`` and a bf16 net it runs the folded tower
   of ``models.tower``: on a CUDA state that is a hand-written kernel, the
   fused one (every layer in one launch) for a net of up to 256 filters,
   the layer kernel (one launch a conv) above, at any width. On a CPU state
   it is the tower's plain version at every width.
+
+``stages(eval_fn)`` gives ``(trunk, heads)`` with ``eval_fn(state) ==
+heads(trunk(state))``, so that the search can mark where each begins; an
+evaluator without stages is all trunk.
 
 On a CUDA state the search captures its evaluator into CUDA graphs
 (``mcts.batched.Search``), so a batched evaluator reads nothing back to
@@ -93,21 +98,43 @@ def make_net_evaluator(net: Connect4Net, fold_bn: bool = True) -> BatchedEvaluat
     (a CUDA kernel on a CUDA state: the fused kernel up to 256 filters, the
     layer kernel above; its plain version on a CPU state); a float32 net
     runs the folded ``InferenceNet``. ``fold_bn=False`` runs the net as it
-    is."""
+    is. The evaluator's ``stages`` are the planes and the folded tower, then
+    the heads; an unfolded net or a float32 one is all trunk."""
     config = net.config
+    head = None
     if not fold_bn:
-        model = net.eval()
+        body = net.eval()
     elif config.compute_dtype == "bfloat16":
         packed = tower.pack_weights(config, fold_bn_params(net))
-        model = lambda nhwc: tower.forward(packed, nhwc)  # noqa: E731
+        body = lambda nhwc: tower.run_tower(packed, tower.input_rows(nhwc))  # noqa: E731
+        head = lambda t: tower.heads(packed, t)  # noqa: E731
     else:
-        model = inference_net(net)
+        body = inference_net(net)
 
     @torch.no_grad()
-    def evaluate(state: BoardState):
-        lead = state.age.shape
+    def trunk(state: BoardState):
         nhwc = to_planes(state).reshape((-1, 3, HEIGHT, WIDTH)).permute(0, 2, 3, 1)
-        value, prior = model(nhwc)
+        return body(nhwc), state.age.shape
+
+    @torch.no_grad()
+    def heads(features):
+        out, lead = features
+        value, prior = out if head is None else head(out)
         return value.float().reshape(lead), prior.float().reshape(lead + (WIDTH,))
 
+    def evaluate(state: BoardState):
+        return heads(trunk(state))
+
+    evaluate.stages = (trunk, heads)
     return evaluate
+
+
+def _whole(out):
+    return out
+
+
+def stages(eval_fn: BatchedEvaluator):
+    """``(trunk, heads)`` of a batched evaluator, ``eval_fn(state) ==
+    heads(trunk(state))``: ``eval_fn.stages`` where it has them, else
+    ``eval_fn`` and nothing after it."""
+    return getattr(eval_fn, "stages", (eval_fn, _whole))

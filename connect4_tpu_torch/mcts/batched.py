@@ -39,6 +39,13 @@ Where the JAX code differs in kind, the port does this:
   and replayed; the tree lives in a workspace that every search of the
   shape resets in place. On the CPU, or with ``graphs=False`` (the
   counterpart of ``jax.disable_jit``), the same ops run eagerly.
+- **Spans.** ``init``, ``finish`` and each phase of an iteration
+  (``launches.SEARCH_PHASES``: the descent and the leaf's expansion, the
+  fan-out, the tower, the heads, the backup) are spans of
+  ``connect4_tpu_torch.launches``: host ranges and, while tracing is on,
+  marks on the card that a CUDA graph replays. Each workspace counts the
+  boards it evaluates by class (``EVAL_CLASSES``) on the card while
+  tracing is on.
 - **Random numbers** come from one ``torch.Generator`` threaded through
   the search, outside the graphs: Dirichlet noise from
   ``torch._standard_gamma``, opening samples as ``torch.multinomial``
@@ -68,7 +75,7 @@ from connect4_tpu_torch.env.core import (
     result_value,
     step,
 )
-from connect4_tpu_torch.eval.evaluators import BatchedEvaluator
+from connect4_tpu_torch.eval.evaluators import BatchedEvaluator, stages
 from connect4_tpu_torch.mcts import descent
 from connect4_tpu_torch.types import HEIGHT, ONGOING, WIDTH
 
@@ -83,6 +90,13 @@ _VISITS = 0
 _VSUM = 1
 _TVAL = 2
 _TERM = 3
+
+# the classes of the boards a search hands its evaluator, counted on the
+# card while tracing is on (``Workspace.evals``): a node's first evaluation;
+# a node evaluated before, or by an earlier walker of the row; a terminal
+# node, whose net value is thrown away; an inactive row
+EVAL_CLASSES = ("useful", "repeat", "terminal", "idle")
+_USEFUL, _REPEAT, _TERMINAL, _IDLE = range(len(EVAL_CLASSES))
 
 
 class TreeArrays(NamedTuple):
@@ -355,6 +369,18 @@ def _record_descent() -> None:
     descend.launches += 1
 
 
+def _count_evals(evals, active, terminal, fresh) -> None:
+    """Tally boards handed to the evaluator into ``evals`` (a
+    ``launches.Counter`` of ``EVAL_CLASSES``) while tracing is on: idle
+    where the row is inactive, terminal where the node is, useful where it
+    is ``fresh`` (its first evaluation), repeat otherwise. ``evals=None``
+    counts nothing."""
+    if evals is None or not launches.traced():
+        return
+    launches.tally(evals, torch.where(
+        active, torch.where(terminal, _TERMINAL, torch.where(fresh, _USEFUL, _REPEAT)), _IDLE))
+
+
 def _expand(tree, rows, leaf, leaf_board, need_alloc, capacity) -> None:
     """Allocate a 7-slot child block under ``leaf`` where ``need_alloc``
     and write the children's metadata, in place (``next_free`` too)."""
@@ -402,9 +428,11 @@ def _root_init(
     tree.stats[:, 0, _VSUM] = root_value.float()
 
 
-def _tail_exact(tree: TreeArrays, d: Descent, rows, *, eval_fn, config, active, capacity) -> None:
+def _tail_exact(tree: TreeArrays, d: Descent, rows, *, eval_fn, config, active, capacity, evals=None) -> None:
     """The rest of a K=1 iteration after the descent ``d``: expansion,
-    evaluation and backup, in place."""
+    evaluation and backup, in place, in the spans ``launches.SEARCH_PHASES``
+    after the first (a phase of the caller's partition each); ``evals``
+    counts the boards evaluated (``_count_evals``)."""
     batch = rows.shape[0]
     leaf, leaf_board, path, depth = d.node, d.board, d.path, d.depth
 
@@ -417,18 +445,26 @@ def _tail_exact(tree: TreeArrays, d: Descent, rows, *, eval_fn, config, active, 
     _expand(tree, rows, leaf, leaf_board, need_expand, capacity)
 
     # select one fresh child where we expanded
+    launches.phase("search.fanout")
     scores = _node_scores(tree, rows, leaf, leaf_board, config, _descend_valid(leaf_board), capacity)
     move2 = _argmax_prefer_large(scores)
     cur_board = _light_step(leaf_board, move2, need_expand)
     cur = torch.where(need_expand, base + move2, leaf)
 
     # --- phase 3: evaluate the leaf -----------------------------------
+    launches.phase("search.tower")
+    trunk, heads = stages(eval_fn)
     cur_stats = tree.stats[rows, cur]
+    features = trunk(cur_board)
+    launches.phase("search.heads")
+    value_net, prior_net = heads(features)
     cur_term = cur_stats[:, _TERM] > 0.5
-    value_net, prior_net = eval_fn(cur_board)
     value = torch.where(cur_term, cur_stats[:, _TVAL], value_net.float())
     prior_masked = _mask_normalise(prior_net, _descend_valid(cur_board))
-    store_prior = active & ~cur_term & ~tree.evaluated[rows, cur]
+    launches.phase("search.backup")
+    fresh = ~tree.evaluated[rows, cur]
+    _count_evals(evals, active, cur_term, fresh)
+    store_prior = active & ~cur_term & fresh
     safe_cur = torch.where(store_prior, cur, capacity)
     tree.prior[rows, safe_cur] = prior_masked
     tree.evaluated[rows, safe_cur] = _scalar(True, tree.evaluated)
@@ -446,13 +482,16 @@ def _tail_exact(tree: TreeArrays, d: Descent, rows, *, eval_fn, config, active, 
     )
 
 
-def _tail_parallel(tree: TreeArrays, d: Descent, rows, *, eval_fn, config, active, capacity) -> None:
+def _tail_parallel(tree: TreeArrays, d: Descent, rows, *, eval_fn, config, active, capacity, evals=None) -> None:
     """The rest of a K-walker iteration after the shared descent ``d``:
     one expansion of the shared leaf, K walkers' fan-out over its children
     sequentially from a precomputed [B, K, 7] score table (child c's score
     when it carries j virtual visits), one batched forward of the K fan-out
     boards, and a backup that adds (1, value) to each fan-out child and (K,
-    sum of values) once along the shared path; in place."""
+    sum of values) once along the shared path; in place, in the spans
+    ``launches.SEARCH_PHASES`` after the first (a phase of the caller's
+    partition each); ``evals`` counts the boards evaluated
+    (``_count_evals``)."""
     K = config.parallel_sims
     batch = rows.shape[0]
     dev = rows.device
@@ -465,6 +504,7 @@ def _tail_parallel(tree: TreeArrays, d: Descent, rows, *, eval_fn, config, activ
     _expand(tree, rows, leaf, leaf_board, need_alloc, capacity)
 
     # --- K-way fan-out over the leaf's children, table-driven -------------
+    launches.phase("search.fanout")
     cb = tree.children_base[rows, leaf].long()
     score_table = _score_parts(
         tree.stats[rows, leaf][:, None, :],
@@ -494,12 +534,23 @@ def _tail_parallel(tree: TreeArrays, d: Descent, rows, *, eval_fn, config, activ
     active_k = active[:, None].expand(batch, K)
 
     # --- lockstep evaluation ----------------------------------------------
+    launches.phase("search.tower")
+    trunk, heads = stages(eval_fn)
     cur_stats = tree.stats[rows[:, None], nodes]  # [B, K, 4]
+    features = trunk(boards.map(lambda x: x.reshape((batch * K,) + x.shape[2:])))
+    launches.phase("search.heads")
+    value_net, prior_net = heads(features)
     cur_term = cur_stats[..., _TERM] > 0.5
-    value_net, prior_net = eval_fn(boards.map(lambda x: x.reshape((batch * K,) + x.shape[2:])))
     value = torch.where(cur_term, cur_stats[..., _TVAL], value_net.reshape(batch, K).float())
     prior_masked = _mask_normalise(prior_net.reshape(batch, K, WIDTH), boards.height < HEIGHT)
-    store_prior = active_k & ~cur_term & ~tree.evaluated[rows[:, None], nodes]
+    launches.phase("search.backup")
+    unevaluated = ~tree.evaluated[rows[:, None], nodes]
+    if evals is not None and launches.traced():
+        # a walker repeats the node of an earlier walker of its row
+        walker = torch.arange(K, device=dev)
+        earlier = ((nodes[:, :, None] == nodes[:, None, :]) & (walker[:, None] > walker[None, :])).any(-1)
+        _count_evals(evals, active_k, cur_term, unevaluated & ~earlier)
+    store_prior = active_k & ~cur_term & unevaluated
     safe_nodes = (rows[:, None], torch.where(store_prior, nodes, capacity))
     tree.prior[safe_nodes] = prior_masked
     tree.evaluated[safe_nodes] = _scalar(True, tree.evaluated)
@@ -533,8 +584,10 @@ def _simulate_parallel(
     rows = torch.arange(root_state.age.shape[0], device=root_state.device)
     d = Descent.empty(rows.shape[0], capacity, rows.device)
     _descent_start(d, tree, root_state, active, capacity)
-    descend(d, tree, rows, config, capacity, config.parallel_sims)
-    _tail_parallel(tree, d, rows, eval_fn=eval_fn, config=config, active=active, capacity=capacity)
+    with launches.partition(rows.device):
+        launches.phase("search.descend")
+        descend(d, tree, rows, config, capacity, config.parallel_sims)
+        _tail_parallel(tree, d, rows, eval_fn=eval_fn, config=config, active=active, capacity=capacity)
     return tree
 
 
@@ -762,7 +815,9 @@ class Workspace:
     """The buffers of one search shape, reset in place by every search of
     that shape: the tree slabs (with the dump column), static copies of the
     roots and of the active mask, the descent, the host's count of
-    iterations since the reset and, where the search runs graphs, the CUDA
+    iterations since the reset, the count of the boards evaluated by class
+    (``evals``, a ``launches.Counter`` of ``EVAL_CLASSES`` that the search
+    updates while tracing is on) and, where the search runs graphs, the CUDA
     graphs of an iteration (``graphs``)."""
 
     def __init__(self, batch: int, capacity: int, device, graphs: bool):
@@ -773,6 +828,7 @@ class Workspace:
         self.rows = torch.arange(batch, device=device)
         self.descent = Descent.empty(batch, capacity, device)
         self.iteration = 0
+        self.evals = launches.Counter("evals", EVAL_CLASSES, device)
         self.graphs = _Graphs(device) if graphs else None
 
     def reset(self, root_state: BoardState, active: torch.Tensor) -> None:
@@ -846,9 +902,12 @@ class Search:
         if ws is None:
             ws = self.workspaces[key] = Workspace(
                 key[1], self.config.tree_capacity(), key[0], self.graphs and key[0].type == "cuda")
-        ws.reset(root_state, active)
-        _root_init(self.eval_fn, ws.tree, ws.root, generator, self.config)
-        _descent_start(ws.descent, ws.tree, ws.root, ws.active, ws.capacity)
+        with launches.span("search.init", key[0]):
+            ws.reset(root_state, active)
+            _root_init(self.eval_fn, ws.tree, ws.root, generator, self.config)
+            if launches.traced():  # a root is its node's first evaluation
+                launches.tally(ws.evals, torch.where(ws.active, _USEFUL, _IDLE))
+            _descent_start(ws.descent, ws.tree, ws.root, ws.active, ws.capacity)
         return ws
 
     @torch.no_grad()
@@ -866,10 +925,13 @@ class Search:
 
     def iteration(self, ws: Workspace) -> None:
         """One iteration: the descent kernel walks every row to its leaf,
-        then the rest of the iteration and the next descent's start."""
+        then the rest of the iteration and the next descent's start; the
+        spans ``launches.SEARCH_PHASES`` partition it."""
         def iteration():
-            descend(ws.descent, ws.tree, ws.rows, self.config, ws.capacity, self._k)
-            self._tail_and_start(ws)
+            with launches.partition(ws.rows.device):
+                launches.phase("search.descend")
+                descend(ws.descent, ws.tree, ws.rows, self.config, ws.capacity, self._k)
+                self._tail_and_start(ws)
 
         self._run(ws, "iteration", iteration)
 
@@ -877,10 +939,13 @@ class Search:
         """One iteration as ``min(t - 1, PATH_MAX - 2)`` descent levels and
         the tail (t = ``ws.iteration``): the CPU's form. On the card, with
         graphs, it replays a level graph and a tail graph: the form the
-        descent kernel is held against."""
-        for _ in range(min(ws.iteration - 1, PATH_MAX - 2)):
-            self.level(ws)
-        self.tail(ws)
+        descent kernel is held against. The spans
+        ``launches.SEARCH_PHASES`` partition it, the levels in the first."""
+        with launches.partition(ws.rows.device):
+            launches.phase("search.descend")
+            for _ in range(min(ws.iteration - 1, PATH_MAX - 2)):
+                self.level(ws)
+            self.tail(ws)
 
     def level(self, ws: Workspace) -> None:
         """One level of the descent."""
@@ -901,7 +966,7 @@ class Search:
     def _tail_and_start(self, ws: Workspace) -> None:
         tail = _tail_parallel if self.config.parallel_sims > 1 else _tail_exact
         tail(ws.tree, ws.descent, ws.rows, eval_fn=self.eval_fn, config=self.config, active=ws.active,
-             capacity=ws.capacity)
+             capacity=ws.capacity, evals=ws.evals)
         _descent_start(ws.descent, ws.tree, ws.root, ws.active, ws.capacity)
 
     @staticmethod
@@ -915,7 +980,8 @@ class Search:
     def finish(self, ws: Workspace, generator: torch.Generator) -> SearchResults:
         """Moves and training targets; the tree is copied out of the
         workspace, which the next search of the shape overwrites."""
-        return _finish(ws.tree, ws.root, generator, self.config, legal_moves(ws.root))
+        with launches.span("search.finish", ws.rows.device):
+            return _finish(ws.tree, ws.root, generator, self.config, legal_moves(ws.root))
 
 
 def search(

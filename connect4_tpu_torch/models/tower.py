@@ -593,10 +593,14 @@ def heads(packed: Dict[str, torch.Tensor], t: torch.Tensor):
     return value, prior
 
 
+def input_rows(nhwc: torch.Tensor) -> torch.Tensor:
+    """``nhwc [B, 6, 7, channels]`` -> the tower's input, ``[B*42,
+    channels]`` contiguous float32 rows."""
+    return nhwc.reshape(nhwc.shape[0] * AREA, nhwc.shape[-1]).float().contiguous()
+
+
 def forward(packed: Dict[str, torch.Tensor], nhwc: torch.Tensor):
     """``nhwc [B, 6, 7, channels] -> (value [B] f32, prior [B, 7] f32)``:
     the tower at the packed width, then the heads on the net's own F
     channels of it."""
-    b = nhwc.shape[0]
-    x2d = nhwc.reshape(b * AREA, nhwc.shape[-1]).float().contiguous()
-    return heads(packed, run_tower(packed, x2d))
+    return heads(packed, run_tower(packed, input_rows(nhwc)))

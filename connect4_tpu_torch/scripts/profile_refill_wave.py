@@ -5,11 +5,16 @@ The counterpart of the JAX package's ``scripts/profile_refill_wave.py``
 F=64 / fc 6 / res 6 bf16 net): a first run of ``make_refill_play_fn`` warms
 up, a steady run is timed wave by wave (full-pool waves against the tail's
 narrowing ones), and a third run is traced over two waves of the full
-pool. A wave's parts are the profiler ranges of ``self_play.WAVE_PARTS``:
-the search, recording the moves and refilling finished slots, the host's
-read of the live count (a transfer from the card) and the gathers that
-narrow the pool; each is given as host time and as the card's busy time
-inside it. Last, the bare chunked search at the pool's width, for
+pool. A wave's parts are the spans of ``launches.WAVE_PARTS``: the search,
+recording the moves and refilling finished slots, the host's read of the
+live count (a transfer from the card) and the gathers that narrow the pool;
+each is given as host time and as the card's busy time that is its own or
+its inner spans' (the search's: ``search.init``, ``search.finish`` and the
+phases of its iterations), by ``_common.span_times``, which reads the marks
+that the search's CUDA graphs replay. The tool runs with tracing on
+(``launches.tracing``), so the traced run also gives every span's times and
+the search's evaluations by class, counted on the card over that run
+(``evals``). Last, the bare chunked search at the pool's width, for
 comparison.
 
     python -m connect4_tpu_torch.scripts.profile_refill_wave [--slots 256] [--games 1200] [--device cpu]
@@ -30,26 +35,29 @@ from connect4_tpu_torch.config import MCTSConfig
 from connect4_tpu_torch.env.core import initial_state
 from connect4_tpu_torch.mcts.batched import make_chunked_search_fn
 from connect4_tpu_torch.scripts import _common
-from connect4_tpu_torch.training.self_play import WAVE_PARTS, make_refill_play_fn
+from connect4_tpu_torch import launches
+from connect4_tpu_torch.launches import SEARCH_PHASES, WAVE_PARTS
+from connect4_tpu_torch.training.self_play import make_refill_play_fn
 from connect4_tpu_torch.utils import TRACE_FILE, make_generator, resolve_device
 
 TRACED_WAVES = 2
 
 
-def _parts(events, n_waves: int) -> dict:
-    """Host and card milliseconds a wave of each part."""
-    kernels = [e for e in events if e.get("cat") in _common.DEVICE_CATEGORIES]
+# the spans inside a part, whose card time is the part's too
+INNER = {"search": ("search.init", "search.finish", *SEARCH_PHASES)}
+
+
+def _parts(events, spans, n_waves: int) -> dict:
+    """Host and card milliseconds a wave of each part, the card's from
+    ``span_times``; None without work of a card in the trace."""
     out = {}
     for key, name in WAVE_PARTS.items():
         host = _common.annotation_spans(events, name)
-        on_card = _common.annotation_spans(events, name, "gpu_user_annotation")
-        busy = None
-        if kernels:
-            busy = sum(_common.device_busy_ms(kernels, span) or 0.0 for span in on_card)
+        busy = [spans["spans"][n]["busy_ms"] for n in (name, *INNER.get(key, ()))]
         out[key] = {
             "range": name, "calls": len(host),
             "host_ms": sum(b - a for a, b in host) / 1e3 / n_waves,
-            "device_ms": None if busy is None else busy / n_waves,
+            "device_ms": None if spans["busy_ms"] is None else sum(busy) / n_waves,
         }
     return out
 
@@ -57,7 +65,15 @@ def _parts(events, n_waves: int) -> dict:
 def profile_refill(eval_fn, config: MCTSConfig, slots: int, games: int, sims_per_call: Optional[int],
                    device) -> dict:
     """The three runs and the bare search; see the module's docstring."""
-    dev = torch.device(device)
+    previous = launches.tracing(True)
+    try:
+        return _profile_refill(eval_fn, config, slots, games, sims_per_call, torch.device(device))
+    finally:
+        launches.tracing(previous)
+
+
+def _profile_refill(eval_fn, config: MCTSConfig, slots: int, games: int, sims_per_call: Optional[int],
+                    dev: torch.device) -> dict:
     play = make_refill_play_fn(eval_fn, config, slots, games, sims_per_call, device=dev)
     _, first_s = _common.timed(lambda: play(make_generator(99, dev)), dev)
 
@@ -75,13 +91,16 @@ def profile_refill(eval_fn, config: MCTSConfig, slots: int, games: int, sims_per
     from torch.profiler import ProfilerActivity, profile, schedule
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    launches.reset_counters()
     with tempfile.TemporaryDirectory(prefix="profile_refill_wave_") as log_dir:
         path = os.path.join(log_dir, TRACE_FILE)
         with profile(activities=activities, schedule=schedule(wait=1, warmup=1, active=TRACED_WAVES, repeat=1),
                      on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
             play(make_generator(2, dev), progress=lambda w, n: prof.step())
         events = _common.trace_events(log_dir)
-    parts = _parts(events, TRACED_WAVES)
+    evals = launches.counters()["evals"]
+    spans = _common.span_times(events)
+    parts = _parts(events, spans, TRACED_WAVES)
 
     chunked = make_chunked_search_fn(eval_fn, config, sims_per_call or config.simulations)
     state0 = initial_state((slots,), device=dev)
@@ -96,7 +115,7 @@ def profile_refill(eval_fn, config: MCTSConfig, slots: int, games: int, sims_per
         "tail_waves": int((~full).sum()), "tail_wave_s": float(times[~full].mean()) if (~full).any() else None,
         "moves": moves, "sims_per_s": moves * config.simulations / steady_s,
         "live_per_wave": live.tolist(), "traced_waves": TRACED_WAVES, "parts": parts,
-        "bare_search_s": bare,
+        "spans": spans, "evals": evals, "bare_search_s": bare,
     }
 
 
@@ -111,6 +130,10 @@ def report(r: dict) -> None:
     for key, p in r["parts"].items():
         card = "not measured" if p["device_ms"] is None else f"{p['device_ms']:.2f}"
         print(f"  {key:9s} {p['host_ms']:10.2f} | {card}  ({p['range']}, {p['calls']} calls)")
+    print(f"every span over the {r['traced_waves']} traced waves:")
+    for line in _common.span_table(r["spans"]):
+        print(f"  {line}")
+    print(f"the traced run's evaluations by class: {r['evals']}")
     print(f"bare chunked search at S={r['slots']}: {r['bare_search_s']:.3f}s")
 
 

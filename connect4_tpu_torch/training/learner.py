@@ -27,6 +27,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from connect4_tpu_torch import launches
 from connect4_tpu_torch.config import ModelConfig
 from connect4_tpu_torch.models.net import Connect4Net, init_net
 from connect4_tpu_torch.parallel.mesh import replicate
@@ -142,7 +143,12 @@ def make_train_step(
     summed gradient to the same parameters. A batch that does not divide
     (an epoch's tail) runs whole on every rank with no all-reduce, as the
     JAX loop runs it replicated; every rank then takes rank 0's replica, so
-    the replicas stay equal bit for bit whatever order a card summed in."""
+    the replicas stay equal bit for bit whatever order a card summed in.
+
+    A step is the span ``learner.step`` of ``connect4_tpu_torch.launches``,
+    holding the whole of it: ``learner.forward`` (clearing the gradients,
+    the cast and the loss), ``learner.backward`` and ``learner.optimizer``
+    among the rest."""
 
     def train_step(
         planes: torch.Tensor,
@@ -150,11 +156,12 @@ def make_train_step(
         prior_targets: torch.Tensor,
         value_weights: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        if mesh is None or len(value_targets) % mesh.world_size == 0:
-            return _step(planes, value_targets, prior_targets, value_weights, mesh)
-        metrics = _step(planes, value_targets, prior_targets, value_weights, None)
-        replicate((net, optimizer), mesh)
-        return metrics
+        with launches.span("learner.step", value_targets.device):
+            if mesh is None or len(value_targets) % mesh.world_size == 0:
+                return _step(planes, value_targets, prior_targets, value_weights, mesh)
+            metrics = _step(planes, value_targets, prior_targets, value_weights, None)
+            replicate((net, optimizer), mesh)
+            return metrics
 
     def _step(planes, value_targets, prior_targets, value_weights, mesh):
         # storage layout: the replay window stays on the device in its
@@ -166,17 +173,21 @@ def make_train_step(
             planes, value_targets, prior_targets = planes[rows], value_targets[rows], prior_targets[rows]
             if value_weights is not None:
                 value_weights = value_weights[rows]
+        device = value_targets.device
         net.train()
         try:
-            optimizer.zero_grad(set_to_none=True)
-            total, (v_loss, p_loss, _, _) = loss_fn(
-                net, planes.float() if nchw else planes, value_targets, prior_targets,
-                value_weights if weighted else None, nchw=nchw, mesh=mesh,
-            )
-            total.backward()
+            with launches.span("learner.forward", device):
+                optimizer.zero_grad(set_to_none=True)
+                total, (v_loss, p_loss, _, _) = loss_fn(
+                    net, planes.float() if nchw else planes, value_targets, prior_targets,
+                    value_weights if weighted else None, nchw=nchw, mesh=mesh,
+                )
+            with launches.span("learner.backward", device):
+                total.backward()
             if mesh is not None:
                 _all_reduce_grads(net, mesh)
-            optimizer.step()
+            with launches.span("learner.optimizer", device):
+                optimizer.step()
         finally:
             net.eval()
         losses = torch.stack([total.detach(), v_loss.detach(), p_loss.detach()])

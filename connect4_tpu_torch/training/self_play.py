@@ -25,8 +25,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from connect4_tpu_torch import launches
 from connect4_tpu_torch.config import MCTSConfig
 from connect4_tpu_torch.env.core import (
     BoardState,
@@ -39,18 +39,6 @@ from connect4_tpu_torch.eval.evaluators import BatchedEvaluator
 from connect4_tpu_torch.mcts.batched import make_chunked_search_fn, make_search_fn
 from connect4_tpu_torch.types import AREA, HEIGHT, ONGOING, WIDTH
 from connect4_tpu_torch.utils import DeviceLike, resolve_device
-
-
-# The parts of a refill wave, as profiler ranges (``record_function``, a few
-# host calls a wave without a profiler): the search, recording the move and
-# refilling finished slots, the host's read of the live count, and the
-# gathers that narrow the pool. ``scripts.profile_refill_wave`` reads them.
-WAVE_PARTS = {
-    "search": "selfplay.search",
-    "record": "selfplay.record_refill",
-    "transfer": "selfplay.live_count",
-    "gather": "selfplay.compact",
-}
 
 
 class SelfPlayOutput(NamedTuple):
@@ -294,9 +282,9 @@ def make_refill_play_fn(
         width = S
         pending_live = None  # previous wave's live count, still on the device
         for wave in range(G * AREA):  # safety bound; exits when the pool drains
-            with record_function(WAVE_PARTS["search"]):
+            with launches.span(launches.WAVE_PARTS["search"], dev):
                 res = search(state, generator, active)
-            with record_function(WAVE_PARTS["record"]):
+            with launches.span(launches.WAVE_PARTS["record"], dev):
                 state, game_ids, results, next_game, active, live_dev = record_step_refill(
                     state, game_ids, bufs, results, next_game, res, active
                 )
@@ -305,7 +293,7 @@ def make_refill_play_fn(
             # costs one all-inactive wave at the end (its writes all go to
             # the dump row).
             if pending_live is not None:
-                with record_function(WAVE_PARTS["transfer"]):
+                with launches.span(launches.WAVE_PARTS["transfer"], dev):
                     live = int(pending_live)
                 if progress is not None:
                     progress(wave - 1, live)
@@ -316,7 +304,7 @@ def make_refill_play_fn(
                 if can_narrow and live <= width // 2 and width // 2 >= MIN_WIDTH:
                     while live <= width // 2 and width // 2 >= MIN_WIDTH:
                         width //= 2
-                    with record_function(WAVE_PARTS["gather"]):
+                    with launches.span(launches.WAVE_PARTS["gather"], dev):
                         state, game_ids, active = compact(state, game_ids, active, width)
             pending_live = live_dev
         else:

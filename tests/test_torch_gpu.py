@@ -4,8 +4,8 @@ CPU, the data-parallel step of two ranks sharing the card against one
 process, the solver's build on the machine with the card,
 ``scripts.evaluate_posn`` on the card against the CPU, the search
 replayed from CUDA graphs against its eager form and against the level
-form, and the descent kernel against its plain version. They skip
-where there is no card. This file imports neither JAX nor the JAX package:
+form, the descent kernel against its plain version, and a traced search's
+marks and counters. They skip where there is no card. This file imports neither JAX nor the JAX package:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu
 """
@@ -486,3 +486,79 @@ def test_refill_self_play_graphed_equals_eager_on_card(monkeypatch):
     assert int((outs[True].result != 0).sum()) == 64
     for name, a, b in zip(outs[False]._fields, outs[False], outs[True]):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_traced_graphed_search_spans_and_counters_on_card(tmp_path):
+    """A traced, graphed search at 64 rows of 8 walkers (gen-161, 64
+    simulations, noise on): its iteration graph holds the five phases'
+    marks, the closing mark and one counter update, where the same search
+    untraced holds none, and the marks count at each replay; in a device trace every kernel, copy and set of
+    every replay falls in a span, and the phases' card time is the
+    replays'; the boards counted by class are the boards the tower kernel
+    took; and the results equal the untraced search's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
+
+    from connect4_tpu_torch import launches
+    from connect4_tpu_torch.config import MCTSConfig
+    from connect4_tpu_torch.eval.evaluators import make_net_evaluator
+    from connect4_tpu_torch.mcts.batched import Search
+    from connect4_tpu_torch.scripts import _common
+
+    rows, k, sims = 64, 8, 64
+    state, active = _search_roots(rows, rows)
+    config = MCTSConfig(simulations=sims, parallel_sims=k, root_dirichlet_alpha=0.3,
+                        root_exploration_fraction=0.25, num_sampling_moves=6)
+    evaluator = make_net_evaluator(load_example_net(device="cuda"))
+
+    def run(search):
+        res = search(state, torch.Generator(device="cuda").manual_seed(1), active)
+        torch.cuda.synchronize()
+        return res
+
+    def logged(search):
+        (ws,) = search.workspaces.values()
+        return ws.graphs.launches["iteration"]
+
+    plain = Search(evaluator, config)
+    run(plain)  # warm-up and capture
+    untraced = run(plain)
+    assert not any(record in (launches._record_mark, launches._record_update) for record, _ in logged(plain))
+    previous = launches.tracing(True)
+    try:
+        traced = Search(evaluator, config)
+        run(traced)
+        assert [args[0] for record, args in logged(traced) if record is launches._record_mark] == [
+            *launches.SEARCH_PHASES, "end"]
+        assert sum(record is launches._record_update for record, _ in logged(traced)) == 1
+        launches.reset_counters()
+        marks = dict(launches.MARKS)
+        before = {f: dict(per) for f, per in tower.run_tower.by_shape.items()}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = run(traced)
+        prof.export_chrome_trace(str(tmp_path / "trace.json"))
+        evals = launches.counters()["evals"]
+    finally:
+        launches.tracing(previous)
+    _search_results_equal(untraced, res)
+    for name in (*launches.SEARCH_PHASES, "end"):  # counted at each replay
+        assert launches.MARKS[name] - marks.get(name, 0) == sims // k, name
+    boards = sum(b * (n - before.get(f, {}).get(b, 0)) for f, per in tower.run_tower.by_shape.items()
+                 for b, n in per.items())
+    assert sum(evals.values()) == boards == rows + sims // k * rows * k
+    assert evals["idle"] == int((~active).sum()) * (1 + sims)
+
+    events = _common.trace_events(str(tmp_path))
+    times = _common.span_times(events)
+    spans = times["spans"]
+    assert times["unattributed_replayed"] == 0
+    assert [spans[n]["calls"] for n in launches.SEARCH_PHASES] == [sims // k] * 5
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime" and "GraphLaunch" in e["name"]}
+    replayed = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("cat") in _common.DEVICE_CATEGORIES and e["args"].get("correlation") in launched]
+    assert len(replayed) > 6 * sims // k
+    assert sum(spans[n]["busy_ms"] for n in launches.SEARCH_PHASES) == pytest.approx(
+        _common._Busy(replayed).total / 1e3, rel=1e-9)

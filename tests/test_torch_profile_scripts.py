@@ -30,6 +30,7 @@ from connect4_tpu_torch.config import MCTSConfig
 from connect4_tpu_torch.env.convert import stack_boards
 from connect4_tpu_torch.env.host_board import HostBoard
 from connect4_tpu_torch.eval.evaluators import centre_evaluator_batched
+from connect4_tpu_torch.launches import WAVE_PARTS
 from connect4_tpu_torch.scripts import (
     _common,
     descent_depth_profile,
@@ -38,7 +39,6 @@ from connect4_tpu_torch.scripts import (
     selfplay_breakdown,
     sweep_search_batch,
 )
-from connect4_tpu_torch.training.self_play import WAVE_PARTS
 from connect4_tpu_torch.utils import TRACE_FILE, trace
 
 # The suite runs several workers at once, each with JAX's threads beside
