@@ -82,7 +82,16 @@ fatal on failure:
    targets from the same weights, in float32 (IEEE float32 on the card, as
    ``utils.full_float32`` sets it) and in bf16, each with its stated limit;
 7. time a train step (forward, backward, update) at batch 4096 in bf16 and
-   float32;
+   float32; then [batch_norm]: ``batch_norm_act``, the learner's fused
+   BatchNorm + LeakyReLU (+ skip) kernel pair (``models/csrc/batch_norm.cu``)
+   under autograd at 4096 x 42 bf16 rows, at every shape the F=64 and F=256
+   steps launch (the heads' C = 1 and 2 matrices; C = 64 and 256 with and
+   without a skip and the float32 stream), against its plain version on
+   the same tensors (``TOL_BN``), timed beside its plain version, its bound
+   by bytes and cuDNN's NCHW BatchNorm with ``torch.where`` (a yardstick
+   the port never calls), and its host microseconds a call against the
+   ops the net ran before it; the pair must have been launched by phases
+   6-8's train steps;
 8. drive the training path at full width: a ``TrainingLoop`` in a temporary
    directory with a freshly initialised F=64 / fc 6 / res 6 bf16 net, 512
    training games in 256 slots (the refill path), K=8, 64 simulations (cut
@@ -196,7 +205,10 @@ fatal on failure:
     level graphs' time before the last iteration of [graph]'s bench shape,
     and its largest difference from its plain version over every snapshot;
     no single PyTorch call computes a descent, so its ``library_ms`` is
-    null), the card's name and power limit, and last ``{"ok": true,
+    null; ``batch_norm_act``: the fused BatchNorm pair at C=64 with a
+    skip and the stream, its launches in phases 6-8, every shape's times
+    and its host cost), the card's name and power limit,
+    and last ``{"ok": true,
     "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
@@ -683,6 +695,251 @@ def time_train_step(dev, generator):
         out[dtype] = {"batch": n, "ms": ms, "ms_again": ms_again, "positions_per_s": n / ms * 1e3}
         log(f"[train] {dtype} step at batch {n}: {ms:.3f} ms (again {ms_again:.3f}), "
             f"{n / ms * 1e3:,.0f} positions/s")
+    return out
+
+
+# [batch_norm]: every (channels, skip, stream) that the F=64 and F=256 train
+# steps launch, at R = 4096 x 42 rows of bf16: the heads' [R, 1] and [R, 2]
+# matrices; a residual block's first BatchNorm (no skip, no stream), the
+# tower's first (its float32 stream), a middle block's second (a skip and
+# the stream) and the last block's second (a skip)
+BN_SHAPES = ((1, False, False), (2, False, False)) + tuple(
+    (c, skip, stream) for c in (64, 256) for skip, stream in ((False, False), (False, True), (True, True), (True, False)))
+BN_ROWS = 4096 * 42
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM's published bandwidth
+# the op vs its plain version (whose backward takes the kernels' own
+# statistics, so that both put each pre-activation on the same side of
+# LeakyReLU's kink): a float32 tensor within 1e-5 of its largest magnitude
+# (Welford's moments and a fixed tree against PyTorch's reductions); each
+# element of a bf16 tensor within one bf16 ulp of its own plain value, plus
+# that float32 term, since a difference of one float32 unit can move its
+# rounding; the statistics and running statistics 1e-4 absolute (values
+# near 1)
+TOL_BN = dict(float32=1e-5, stats=1e-4)
+BN_HOST_BOARDS = 32  # [batch_norm]'s host cost: a size at which the host paces the card
+
+
+def bf16_ulp(r):
+    """One bf16 unit in the last place of each element of ``r`` (0 at 0)."""
+    import torch
+
+    _, e = torch.frexp(r.float())  # |r| = m * 2**e, m in [0.5, 1): 8 significant bits
+    return torch.where(r == 0, 0.0, torch.ldexp(torch.ones_like(r, dtype=torch.float32), e - 8))
+
+
+def bn_excess(a, r) -> float:
+    """The largest ratio of ``|a - r|`` to its limit (``TOL_BN``), over the
+    elements: at most 1 passes."""
+    import torch
+
+    diff = (a.float() - r.float()).abs()
+    limit = TOL_BN["float32"] * r.float().abs().max()
+    if r.dtype == torch.bfloat16:
+        limit = limit + bf16_ulp(r)
+    return (diff / torch.clamp(limit, min=torch.finfo(torch.float32).tiny)).max().item()
+
+
+def bn_host_us(dev, iters: int = 300, rounds: int = 3) -> dict:
+    """Host microseconds of one forward and backward at ``BN_HOST_BOARDS``
+    boards of 64 channels with a skip and the stream (a middle block's
+    second BatchNorm), where the card finishes each launch before the host
+    has made the next: ``batch_norm_act`` (its checks, then the op),
+    ``batch_norm_act_unchecked`` (what the net calls) and the ops the net
+    ran before the fused pair, ``lrelu(_bn(x) + skip)`` in float32 NCHW and
+    the bf16 copy the next conv takes. Each the median of ``rounds`` loops
+    of ``iters``, in turns."""
+    import statistics
+
+    import torch
+    from torch import nn
+
+    from connect4_tpu_torch.models import batch_norm as B
+    from connect4_tpu_torch.models import net as N
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    shape = (BN_HOST_BOARDS, 64, 6, 7)
+    last = dict(memory_format=torch.channels_last)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16).contiguous(**last).requires_grad_(True)
+    s = torch.randn(shape, generator=g, device=dev).contiguous(**last).requires_grad_(True)
+    g_c = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16).contiguous(**last)
+    g_f = torch.randn(shape, generator=g, device=dev).contiguous(**last)
+    xn, sn = x.detach().contiguous().requires_grad_(True), s.detach().contiguous().requires_grad_(True)
+    gn_c, gn_f = g_c.contiguous(), g_f.contiguous()
+    bn = nn.BatchNorm2d(64).to(dev).train()
+    params = [bn.weight, bn.bias]
+
+    def fused(op):
+        def run():
+            y_c, y_f = op(x, bn, s, True)
+            torch.autograd.grad([y_c, y_f], [x, s] + params, [g_c, g_f])
+        return run
+
+    def ops():
+        y = N.lrelu(N._bn(xn, bn) + sn)
+        torch.autograd.grad([y.to(torch.bfloat16), y], [xn, sn] + params, [gn_c, gn_f])
+
+    ways = {"checked": fused(B.batch_norm_act), "unchecked": fused(B.batch_norm_act_unchecked), "ops": ops}
+    times = {k: [] for k in ways}
+    for _ in range(rounds):
+        for k, fn in ways.items():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) / iters * 1e6)
+    return {k: statistics.median(v) for k, v in times.items()} | {"rounds_us": times, "boards": BN_HOST_BOARDS}
+
+
+def batch_norm_phase(dev):
+    """[batch_norm]: ``batch_norm_act``, the fused BatchNorm + LeakyReLU
+    (+ skip) kernel pair (``models/csrc/batch_norm.cu``) under autograd, at
+    every shape of the main path (``BN_SHAPES``): its outputs, gradients
+    and running statistics against the plain version's on the same tensors
+    (``TOL_BN``; the kernels' statistics from the op's own saved tensors),
+    and the times of the op, of its plain version and of cuDNN's NCHW
+    BatchNorm with ``torch.where`` on the float32 NCHW activation (a
+    yardstick the port never calls), forward and forward plus backward,
+    beside the bound by bytes (each byte the op needs read or written
+    once): the kernels through their bindings and the op under autograd;
+    then the host's cost a call (``bn_host_us``)."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    from connect4_tpu_torch.models import batch_norm as B
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for c, skip, stream in BN_SHAPES:
+        shape = (BN_ROWS // 42, c, 6, 7)
+        matrix = c < 8  # a head's [N*H*W, C] rows, from its row product
+
+        def draw(offset=0.0, dtype=torch.float32):
+            t = torch.randn(shape, generator=g, device=dev) + offset
+            t = t.to(dtype).contiguous(memory_format=torch.channels_last)
+            return t.permute(0, 2, 3, 1).reshape(-1, c) if matrix else t
+
+        means = torch.randn((c,) if matrix else (c, 1, 1), generator=g, device=dev)
+        x = (draw() * 2 + means).to(torch.bfloat16)
+        x = x if matrix else x.contiguous(memory_format=torch.channels_last)
+        s = draw() if skip else None
+        g_c, g_f = draw(0.5, torch.bfloat16), (draw(0.5) if stream else None)
+        bn = nn.BatchNorm2d(c).to(dev).train()
+        with torch.no_grad():
+            bn.weight.copy_(1 + 0.3 * torch.randn((c,), generator=g, device=dev))
+            bn.bias.copy_(0.2 * torch.randn((c,), generator=g, device=dev))
+        bn0 = copy.deepcopy(bn)
+        xr = x.detach().requires_grad_(True)
+        sr = None if s is None else s.detach().requires_grad_(True)
+        inputs = [xr, bn.weight, bn.bias] + ([sr] if skip else [])
+        grads_out = [g_c] + ([g_f] if stream else [])
+
+        def op_fwd():
+            return B.batch_norm_act(x, bn, s, stream)
+
+        def op_both(saved=None):
+            y_c, y_f = B.batch_norm_act(xr, bn, sr, stream)
+            if saved is not None:  # (x, skip, stats): the kernels' mean, 1/sd, scale and shift
+                saved.append(y_c.grad_fn.saved_tensors[2].clone())
+            return y_c, y_f, torch.autograd.grad([y_c] + ([y_f] if stream else []), inputs, grads_out)
+
+        def plain_both(stats=None):
+            y_c, y_f, st = B._forward_plain(x, bn0.weight.detach(), bn0.bias.detach(), bn0.running_mean,
+                                            bn0.running_var, s, stream)
+            return y_c, y_f, st, B._backward_plain(x, s, st if stats is None else stats, g_c, g_f)
+
+        saved = []
+        ky, kf, kgrads = op_both(saved)
+        k_stats = saved[0]
+        k_running = (bn.running_mean.clone(), bn.running_var.clone())
+        py, pf, p_stats, pgrads = plain_both(k_stats)
+        torch.cuda.synchronize()
+        pairs = [("y", ky, py), ("dx", kgrads[0], pgrads[0]), ("dgamma", kgrads[1], pgrads[1]),
+                 ("dbeta", kgrads[2], pgrads[2])]
+        if stream:
+            pairs.append(("y_stream", kf, pf))
+        if skip:
+            pairs.append(("dskip", kgrads[3], pgrads[3]))
+        errs = {n: ((a.float() - r.float()).abs().max() / r.float().abs().max()).item() for n, a, r in pairs}
+        excess = {n: bn_excess(a, r) for n, a, r in pairs}
+        errs["stats"] = (k_stats - p_stats).abs().max().item()
+        errs["running"] = max((k_running[0] - bn0.running_mean).abs().max().item(),
+                              (k_running[1] - bn0.running_var).abs().max().item())
+        for k in ("stats", "running"):
+            excess[k] = errs[k] / TOL_BN["stats"]
+        bad = {k: v for k, v in excess.items() if not v <= 1}
+
+        x4 = x.reshape(BN_ROWS // 42, 6, 7, c).permute(0, 3, 1, 2) if matrix else x
+        xn = x4.float().contiguous()  # the parent's path: the float32 NCHW cast
+        sn = None if s is None else (s.reshape(xn.shape[0], 6, 7, c).permute(0, 3, 1, 2) if matrix else s).contiguous()
+        gn = (g_c.reshape(xn.shape[0], 6, 7, c).permute(0, 3, 1, 2) if matrix else g_c).float().contiguous()
+        w, b = bn.weight.detach(), bn.bias.detach()
+
+        def library_fwd():
+            y = F.batch_norm(xn, None, None, w, b, training=True, eps=B.EPS)
+            y = y if sn is None else y + sn
+            return torch.where(y >= 0, y, y * B.SLOPE)
+
+        def library_both():
+            xl = xn.detach().requires_grad_(True)
+            wl, bl = w.detach().requires_grad_(True), b.detach().requires_grad_(True)
+            y = F.batch_norm(xl, None, None, wl, bl, training=True, eps=B.EPS)
+            y = y if sn is None else y + sn
+            torch.autograd.grad(torch.where(y >= 0, y, y * B.SLOPE), [xl, wl, bl], gn)
+
+        def kernels_fwd():
+            return B._forward_cuda(x, w, b, bn.running_mean, bn.running_var, s, stream)
+
+        def kernels_both():
+            _, _, st = kernels_fwd()
+            return B._backward_cuda(x, s, st, g_c, g_f)
+
+        e = 2  # bf16 bytes
+        # x; y; skip; stream. Back: x, g_c, dx; g_f; skip, dskip
+        fwd_bytes = BN_ROWS * c * (2 * e + 4 * skip + 4 * stream)
+        both_bytes = fwd_bytes + BN_ROWS * c * (3 * e + 4 * stream + 8 * skip)
+        # the kernels' time through their bindings, whose host work is a
+        # fraction of it; the op under autograd, whose host work can set
+        # the pace at these sizes
+        with torch.no_grad():
+            t = {"fwd_ms": timed_ms(kernels_fwd), "ms": timed_ms(kernels_both),
+                 "op_fwd_ms": timed_ms(op_fwd),
+                 "plain_fwd_ms": timed_ms(lambda: B._forward_plain(x, w, b, bn0.running_mean, bn0.running_var, s,
+                                                                   stream)),
+                 "plain_ms": timed_ms(plain_both),
+                 "library_fwd_ms": timed_ms(library_fwd)}
+        t["op_ms"] = timed_ms(op_both)
+        t["library_ms"] = timed_ms(library_both)
+        with torch.no_grad():
+            t["ms_again"] = timed_ms(kernels_both)
+        t.update(bound_fwd_ms=fwd_bytes / HBM_BYTES_PER_S * 1e3, bound_ms=both_bytes / HBM_BYTES_PER_S * 1e3,
+                 bound_by="bytes", bytes=both_bytes, rows=BN_ROWS, channels=c, skip=skip, stream=stream,
+                 errors=errs, excess=excess)
+        name = f"C={c}{' skip' if skip else ''}{' stream' if stream else ''}"
+        out[name] = t
+        log(f"[batch_norm] {name}, {BN_ROWS} bf16 rows{' ([R, C] matrix)' if matrix else ''}: forward "
+            f"{t['fwd_ms']:.4f} ms (bound {t['bound_fwd_ms']:.4f}), forward and backward {t['ms']:.4f} ms (again "
+            f"{t['ms_again']:.4f}; bound {t['bound_ms']:.4f} ms, {both_bytes / 1e6:.1f} MB, "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of it); the op under autograd {t['op_fwd_ms']:.4f} / "
+            f"{t['op_ms']:.4f} ms; plain {t['plain_fwd_ms']:.4f} / {t['plain_ms']:.4f} ms; "
+            f"cuDNN NCHW BatchNorm + where {t['library_fwd_ms']:.4f} / {t['library_ms']:.4f} ms; largest "
+            f"differences from the plain version {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}; "
+            f"largest share of the limit {max(excess.values()):.3g}")
+        if bad:
+            fail(f"[batch_norm] {name}: the op differs from the plain version beyond TOL_BN (share of the "
+                 f"limit): {bad}")
+        if (kf is not None) != stream:
+            fail(f"[batch_norm] {name}: the float32 stream is {'missing' if stream else 'there unasked'}")
+    host = bn_host_us(dev)
+    log(f"[batch_norm] host a forward and backward at {host['boards']} boards x 64 channels, a skip and the "
+        f"stream: batch_norm_act {host['checked']:.1f} us, batch_norm_act_unchecked {host['unchecked']:.1f} us, "
+        f"the ops before it (lrelu(_bn(x) + skip), the bf16 copy) {host['ops']:.1f} us")
+    out["host_us"] = host
     return out
 
 
@@ -2473,7 +2730,7 @@ def main() -> int:
     from connect4_tpu_torch.mcts import batched, descent
     from connect4_tpu_torch.mcts.batched import make_search_fn
     from connect4_tpu_torch.scripts import l2_latency
-    from connect4_tpu_torch.models import tower
+    from connect4_tpu_torch.models import batch_norm, tower
     from connect4_tpu_torch.models.convert import load_example_net
     from connect4_tpu_torch.models.net import fold_bn_params
     from connect4_tpu_torch.env.core import to_planes
@@ -2491,16 +2748,17 @@ def main() -> int:
 
     # --- 1. build: one nvcc a source, all started together ------------------
     t0 = time.perf_counter()
-    sources = (tower.SOURCE, descent.SOURCE, l2_latency.SOURCE)
+    sources = (tower.SOURCE, descent.SOURCE, batch_norm.SOURCE, l2_latency.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         for built in [pool.submit(build.build, src) for src in sources]:
             built.result()
     tower._library()
     descent._library()
+    batch_norm._library()
     l2_latency._library()
     report["build_s"] = time.perf_counter() - t0
-    log(f"[build] tower kernels (fused and layer, one source), the descent kernel and the L2 chase ready in "
-        f"{report['build_s']:.1f} s")
+    log(f"[build] tower kernels (fused and layer, one source), the descent kernel, the fused BatchNorm pair "
+        f"and the L2 chase ready in {report['build_s']:.1f} s")
     for src in sources:
         log(build.BUILD_LOGS.get(src, f"{src}: (already built)").strip())
 
@@ -2652,8 +2910,12 @@ def main() -> int:
     # a generator of their own: the learner's batches do not depend on how
     # many positions the phases above drew
     train_gen = make_generator(SMOKE["seed"] + 1, dev)
+    batch_norm.batch_norm_act.launches = batch_norm.batch_norm_act.backward_launches = 0
     report["train_check"] = check_train_step(dev, train_gen)
     report["train_times"] = time_train_step(dev, train_gen)
+    fused_bn = {"train": [batch_norm.batch_norm_act.launches, batch_norm.batch_norm_act.backward_launches]}
+    report["batch_norm"] = batch_norm_phase(dev)
+    batch_norm.batch_norm_act.launches = batch_norm.batch_norm_act.backward_launches = 0
     # the phase-8 run stays for the [scripts] phase, which re-evaluates it
     with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as run_dir:
         batched.descend.launches = 0
@@ -2671,6 +2933,9 @@ def main() -> int:
         if report_boards not in times:
             fail(f"most launches of the generations are at B={report_boards}, which was not timed: "
                  f"{generation_shapes}")
+        fused_bn["generation"] = [batch_norm.batch_norm_act.launches, batch_norm.batch_norm_act.backward_launches]
+        if min(min(v) for v in fused_bn.values()) == 0:
+            fail(f"the learner never launched the fused BatchNorm kernels (forward, backward): {fused_bn}")
         batched.descend.launches = 0
         report["match"] = gen161_match(net, dev, shapes)
         descents["match"] = batched.descend.launches
@@ -2887,6 +3152,37 @@ def main() -> int:
                                               "latency_floor_ms", "binds", "rows", "descending", "levels",
                                               "deepest") if f in c}
                         for k, c in checks.items()},
+    })
+    # the learner's fused BatchNorm pair: no TPU kernel (the JAX learner's
+    # BatchNorm is XLA's); its launches on the counted paths ([check] and
+    # [train], then phase 8's generations), and its numbers at C=64 with a
+    # skip, a middle residual block's second BatchNorm
+    t_bn = report["batch_norm"]["C=64 skip stream"]
+    bn_shapes = {k: t for k, t in report["batch_norm"].items() if k != "host_us"}
+    kernels.append({
+        "name": "batch_norm_act",
+        "route": "cuda",
+        "source": "connect4_tpu_torch/models/csrc/batch_norm.cu",
+        "replaces": None,
+        "launches": sum(v[0] for v in fused_bn.values()),
+        "backward_launches": sum(v[1] for v in fused_bn.values()),
+        "launches_by_path": fused_bn,
+        "rows": t_bn["rows"],
+        "channels": t_bn["channels"],
+        "max_rel_err": max(max(t["errors"].values()) for t in bn_shapes.values()),
+        "max_share_of_limit": max(max(t["excess"].values()) for t in bn_shapes.values()),
+        "ms": t_bn["ms"],
+        "fwd_ms": t_bn["fwd_ms"],
+        "plain_ms": t_bn["plain_ms"],
+        "bound_ms": t_bn["bound_ms"],
+        "bound_by": t_bn["bound_by"],
+        # cuDNN's NCHW BatchNorm and torch.where, forward and backward
+        "library_ms": t_bn["library_ms"],
+        "by_shape": {k: {f: t[f] for f in ("ms", "fwd_ms", "op_ms", "op_fwd_ms", "plain_ms", "plain_fwd_ms",
+                                           "bound_ms", "bound_fwd_ms", "library_ms", "library_fwd_ms")}
+                     for k, t in bn_shapes.items()},
+        # host microseconds a forward and backward against the ops before it
+        "host_us": {k: report["batch_norm"]["host_us"][k] for k in ("checked", "unchecked", "ops")},
     })
     smi = card()
     report["nvidia_smi"] = smi

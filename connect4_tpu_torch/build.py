@@ -3,7 +3,8 @@
 Each source has a plain C interface and is opened with ``ctypes``. Two
 toolchains build them:
 
-- ``NVCC``: the CUDA kernels of ``models/csrc/*.cu`` (the tower),
+- ``NVCC``: the CUDA kernels of ``models/csrc/*.cu`` (the tower and the
+  learner's fused BatchNorm),
   ``mcts/csrc/*.cu`` (the search's descent, and the spans' marks of
   ``launches``) and ``scripts/csrc/*.cu`` (a measurement's), for
   ``sm_90a``, into ``build/kernels/``;

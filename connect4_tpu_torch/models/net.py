@@ -4,8 +4,8 @@ The counterpart of ``connect4_tpu.models.net``: a conv+BN tower with
 residual blocks over the 3x(6x7) input planes, a value head mapping to
 [0, 1] via tanh, and a policy head emitting a softmax over the 7 columns.
 The public forward takes NHWC ``[N, 6, 7, channels]`` planes, as the JAX
-package does; inside, the tower runs NCHW, and ``nchw=True`` hands it the
-stored ``[N, channels, 6, 7]`` planes as they are.
+package does; inside, the tower runs on ``[N, channels, 6, 7]`` tensors, and
+``nchw=True`` hands it the stored planes in that form as they are.
 
 Parity details kept from the JAX net:
 
@@ -31,6 +31,16 @@ Parity details kept from the JAX net:
   global mean, both with a gradient (``parallel.mesh.all_reduce_with_grad``;
   ``nn.SyncBatchNorm`` refuses CPU tensors). Every rank holds the same
   number of rows.
+- On the card in training mode on one rank, each BatchNorm with the
+  LeakyReLU after it (and a residual block's skip add) is one hand-written
+  kernel pair a direction (``models.batch_norm``) over NHWC activations, and
+  the tower's activations stay ``channels_last`` from the input planes to
+  the heads, so that cuDNN's convolutions take and give NHWC with no
+  transposes; the heads' 1x1 convs are products of the tower's rows with
+  their kernels. The pair writes each activation once in the compute dtype,
+  what the next conv takes, and, where a skip follows, once in float32, the
+  residual stream. CPU tensors, eval mode and the data-parallel BatchNorm
+  keep ``_bn`` and ``lrelu``.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from connect4_tpu_torch.config import NetConfig
+from connect4_tpu_torch.models import batch_norm
 from connect4_tpu_torch.types import AREA, WIDTH
 from connect4_tpu_torch.utils import DeviceLike, resolve_device
 
@@ -58,9 +69,12 @@ def compute_dtype(config: NetConfig) -> torch.dtype:
     return torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
 
 
-def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype, fused: bool = False) -> torch.Tensor:
+    """The conv in ``dtype``; ``fused`` (``_fused``) casts its weight to
+    ``channels_last`` as the fused path's activations are."""
     bias = None if conv.bias is None else conv.bias.to(dtype)
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, padding=conv.padding)
+    weight = conv.weight.to(dtype, memory_format=torch.channels_last) if fused else conv.weight.to(dtype)
+    return F.conv2d(x.to(dtype), weight, bias, padding=conv.padding)
 
 
 def _dense(x: torch.Tensor, fc: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -110,6 +124,24 @@ def _bn_global(x: torch.Tensor, bn: nn.BatchNorm2d, mesh) -> torch.Tensor:
     return d * scale[None, :, None, None] + bn.bias[None, :, None, None]
 
 
+def _fused(planes: torch.Tensor, training: bool, mesh) -> bool:
+    """Whether the net's BatchNorms run as the fused kernel pair: on the
+    card, in training mode, on one rank."""
+    return planes.device.type == "cuda" and training and (mesh is None or mesh.world_size == 1)
+
+
+def _bn_act(x: torch.Tensor, bn: nn.BatchNorm2d, mesh=None, fused: bool = False, skip=None, stream: bool = False):
+    """``lrelu(BatchNorm(x) + skip)`` as ``(y, y_stream)``: ``y`` what the
+    next conv takes, ``y_stream`` the float32 activation where ``stream``
+    asks for it (a skip follows). ``fused`` runs ``batch_norm_act``;
+    otherwise both are the float32 ``lrelu(_bn(x) + skip)``."""
+    if fused:
+        return batch_norm.batch_norm_act_unchecked(x, bn, skip, stream)
+    y = _bn(x, bn, mesh)
+    y = lrelu(y if skip is None else y + skip)
+    return y, y
+
+
 def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
     """[N, C, H, W] -> [N, H*W*C] in Flax's (row, col, channel) order."""
     return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
@@ -121,8 +153,9 @@ class _ConvBlock(nn.Module):
         self.conv = nn.Conv2d(cin, filters, 3, padding=1, bias=False)
         self.bn = nn.BatchNorm2d(filters, eps=BN_EPS)
 
-    def forward(self, x, dtype, mesh=None):
-        return lrelu(_bn(_conv(x, self.conv, dtype), self.bn, mesh))
+    def forward(self, x, dtype, mesh=None, fused=False, stream=False):
+        """``(conv input, float32 stream)`` of the tower's first layer."""
+        return _bn_act(_conv(x, self.conv, dtype, fused), self.bn, mesh, fused, stream=stream)
 
 
 class _ResidualBlock(nn.Module):
@@ -133,10 +166,26 @@ class _ResidualBlock(nn.Module):
         self.conv1 = nn.Conv2d(filters, filters, 3, padding=1, bias=False)
         self.bn1 = nn.BatchNorm2d(filters, eps=BN_EPS)
 
-    def forward(self, x, dtype, mesh=None):
-        y = lrelu(_bn(_conv(x, self.conv0, dtype), self.bn0, mesh))
-        y = _bn(_conv(y, self.conv1, dtype), self.bn1, mesh)
-        return lrelu(y + x.float())
+    def forward(self, x, dtype, mesh=None, fused=False, stream=False):
+        """``x`` = (conv input, float32 stream) -> the same of the block's
+        output."""
+        x, skip = x
+        y, _ = _bn_act(_conv(x, self.conv0, dtype, fused), self.bn0, mesh, fused)
+        return _bn_act(_conv(y, self.conv1, dtype, fused), self.bn1, mesh, fused, skip=skip, stream=stream)
+
+
+def _head_bn_act(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype, mesh, fused) -> torch.Tensor:
+    """A head's 1x1 conv, BatchNorm and LeakyReLU, flattened to
+    ``[N, H*W*C]`` in Flax's order. On the fused path the 1x1 conv is the
+    product of the ``channels_last`` tower output's ``[N*H*W, F]`` rows
+    with the ``[F, C]`` kernel, so its ``[N*H*W, C]`` output is already the
+    matrix ``batch_norm_act`` takes and its flattening a view (cuDNN's NHWC
+    convolutions pad and transpose C = 1 and 2)."""
+    if not fused:
+        return _flatten_nhwc(_bn_act(_conv(x, conv, dtype), bn, mesh)[0])
+    rows = x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
+    y = F.linear(rows.to(dtype), conv.weight.reshape(conv.out_channels, -1).to(dtype), conv.bias.to(dtype))
+    return batch_norm.batch_norm_act_unchecked(y, bn)[0].reshape(x.shape[0], -1)
 
 
 class _ValueHead(nn.Module):
@@ -147,8 +196,8 @@ class _ValueHead(nn.Module):
         self.fcs = nn.ModuleList([nn.Linear(AREA, AREA) for _ in range(n_fc_layers)])
         self.out = nn.Linear(AREA, 1)
 
-    def forward(self, x, dtype, mesh=None):
-        x = _flatten_nhwc(lrelu(_bn(_conv(x, self.conv, dtype), self.bn, mesh)))
+    def forward(self, x, dtype, mesh=None, fused=False):
+        x = _head_bn_act(x, self.conv, self.bn, dtype, mesh, fused)
         for fc in self.fcs:  # no activation between the Dense layers
             x = _dense(x, fc, dtype)
         x = _dense(lrelu(x), self.out, dtype)
@@ -162,8 +211,8 @@ class _PolicyHead(nn.Module):
         self.bn = nn.BatchNorm2d(2, eps=BN_EPS)
         self.fc = nn.Linear(AREA * 2, WIDTH)
 
-    def forward(self, x, dtype, mesh=None):
-        x = _flatten_nhwc(lrelu(_bn(_conv(x, self.conv, dtype), self.bn, mesh)))
+    def forward(self, x, dtype, mesh=None, fused=False):
+        x = _head_bn_act(x, self.conv, self.bn, dtype, mesh, fused)
         return torch.softmax(_dense(x, self.fc, dtype).float(), dim=-1)
 
 
@@ -172,7 +221,8 @@ class Connect4Net(nn.Module):
     (or NCHW ``[N, channels, 6, 7]`` with ``nchw=True``). Returns
     ``(value [N] in [0,1], prior [N,7] summing to 1)``. In training mode a
     ``mesh`` (``parallel.mesh.Mesh``) makes every BatchNorm take the
-    statistics of all its ranks' rows."""
+    statistics of all its ranks' rows. On the card in training mode on one
+    rank the tower runs ``channels_last`` through ``batch_norm_act``."""
 
     def __init__(self, config: NetConfig):
         super().__init__()
@@ -187,10 +237,16 @@ class Connect4Net(nn.Module):
 
     def forward(self, planes: torch.Tensor, nchw: bool = False, mesh=None):
         dtype = compute_dtype(self.config)
-        x = self.conv_block(planes if nchw else planes.permute(0, 3, 1, 2), dtype, mesh)
-        for blk in self.res_blocks:
-            x = blk(x, dtype, mesh)
-        return self.value_head(x, dtype, mesh), self.policy_head(x, dtype, mesh)
+        fused = _fused(planes, self.training, mesh)
+        x = planes if nchw else planes.permute(0, 3, 1, 2)
+        if fused:
+            x = x.contiguous(memory_format=torch.channels_last)
+        n = len(self.res_blocks)
+        x = self.conv_block(x, dtype, mesh, fused, stream=n > 0)
+        for i, blk in enumerate(self.res_blocks):
+            x = blk(x, dtype, mesh, fused, stream=i + 1 < n)
+        x = x[0]
+        return self.value_head(x, dtype, mesh, fused), self.policy_head(x, dtype, mesh, fused)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@ process, the solver's build on the machine with the card,
 ``scripts.evaluate_posn`` on the card against the CPU, the search
 replayed from CUDA graphs against its eager form and against the level
 form, the descent kernel against its plain version, and a traced search's
-marks and counters. They skip where there is no card. This file imports neither JAX nor the JAX package:
+marks and counters, and the learner's fused BatchNorm kernels against
+their plain version and in a profiled train step. They skip where there is
+no card. This file imports neither JAX nor the JAX package:
 
     python -m pytest tests/test_torch_gpu.py -q -m gpu
 """
@@ -225,7 +227,10 @@ def test_dp_step_on_card_matches_one_process(tmp_path):
     """Two gloo ranks sharing ``cuda:0`` take two float32 data-parallel
     steps at batch 256 (128 a rank): equal replicas, and within the 1e-4
     of the train step's card-vs-CPU check of one process's steps on the
-    card."""
+    card. The ranks' BatchNorm is ``_bn_global`` (two all-reduced sums);
+    the one process runs the fused kernel pair, whose statistics are
+    Welford's: the two differ in the order of their float32 sums only,
+    which the 1e-4 covers as it covers the card against the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import torch.multiprocessing as tmp
@@ -562,3 +567,167 @@ def test_traced_graphed_search_spans_and_counters_on_card(tmp_path):
     assert len(replayed) > 6 * sims // k
     assert sum(spans[n]["busy_ms"] for n in launches.SEARCH_PHASES) == pytest.approx(
         _common._Busy(replayed).total / 1e3, rel=1e-9)
+
+
+def _bn_case(rows, c, dtype, skip, seed):
+    """A conv output of ``rows`` (``4096*42``: a channels_last [4096, C, 6, 7]
+    batch; ``"ragged"``: a [100003, C] matrix; ``"unaligned"``: the same one
+    element into its storage, so no address is 16-byte aligned and the
+    kernels take one channel a thread), channels with means away from 0,
+    a float32 skip or None, the upstream gradients of both outputs (mean
+    0.5, so the channel sums stay far from 0) and a BatchNorm."""
+    from torch import nn
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if rows == "ragged" or rows == "unaligned":
+        n = 100003
+        off = int(rows == "unaligned")
+        shape = (n, c)
+        x = torch.empty(n * c + off, device="cuda", dtype=dtype)[off:].view(n, c)
+        x.copy_(torch.randn(shape, generator=g, device="cuda") * 2 + torch.randn((c,), generator=g, device="cuda"))
+
+        def like(t):
+            out = torch.empty(n * c + off, device="cuda", dtype=t.dtype)[off:].view(n, c)
+            return out.copy_(t)
+    else:
+        shape = (rows // 42, c, 6, 7)
+        x = (torch.randn(shape, generator=g, device="cuda") * 2
+             + torch.randn((c, 1, 1), generator=g, device="cuda")).to(dtype).contiguous(
+                 memory_format=torch.channels_last)
+
+        def like(t):
+            return t.contiguous(memory_format=torch.channels_last)
+    s = like(torch.randn(shape, generator=g, device="cuda")) if skip else None
+    g_c = like((torch.randn(shape, generator=g, device="cuda") + 0.5).to(dtype))
+    g_f = like(torch.randn(shape, generator=g, device="cuda") + 0.5)
+    bn = nn.BatchNorm2d(c).cuda().train()
+    with torch.no_grad():
+        bn.weight.copy_(1 + 0.3 * torch.randn((c,), generator=g, device="cuda"))
+        bn.bias.copy_(0.2 * torch.randn((c,), generator=g, device="cuda"))
+    return x, s, g_c, g_f, bn
+
+
+def _bn_kernel_run(x, s, g_c, g_f, bn):
+    """The kernels forward and backward on copies of ``bn``: outputs, every
+    gradient, the running statistics and the kernels' own statistics (mean,
+    1/sd, scale and shift, as the op saved them for its backward)."""
+    import copy
+
+    from connect4_tpu_torch.models.batch_norm import batch_norm_act
+
+    bn = copy.deepcopy(bn)
+    xr = x.detach().requires_grad_(True)
+    sr = None if s is None else s.detach().requires_grad_(True)
+    y_c, y_f = batch_norm_act(xr, bn, sr, stream=True)
+    stats = y_c.grad_fn.saved_tensors[2].clone()  # (x, skip, stats)
+    outs, grads = ([y_c], [g_c]) if y_f is y_c else ([y_c, y_f], [g_c, g_f])
+    torch.autograd.backward(outs, grads)
+    torch.cuda.synchronize()
+    return dict(y_c=y_c, y_f=y_f, dx=xr.grad, dgamma=bn.weight.grad, dbeta=bn.bias.grad,
+                dskip=None if sr is None else sr.grad, mean=bn.running_mean, var=bn.running_var, stats=stats)
+
+
+def _bf16_ulp(r):
+    """One bf16 unit in the last place of each element of ``r`` (0 at 0)."""
+    _, e = torch.frexp(r.float())  # |r| = m * 2**e, m in [0.5, 1): 8 significant bits
+    return torch.where(r == 0, 0.0, torch.ldexp(torch.ones_like(r, dtype=torch.float32), e - 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [4096 * 42, "ragged", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [1, 2, 64, 256])
+@pytest.mark.parametrize("skip", [False, True])
+def test_batch_norm_act_kernels_match_plain_on_card(skip, c, dtype, rows):
+    """The fused BatchNorm + LeakyReLU (+ skip) pair against its plain
+    version on the same card tensors: both outputs, the statistics and the
+    running statistics from the plain forward; the gradients of x, scale,
+    bias and skip from the plain backward given the kernels' statistics
+    (so that both put each pre-activation on the same side of LeakyReLU's
+    kink: ``addcmul`` on the card is the kernels' ``fma``); and the same
+    inputs give bit-equal results on two runs (the reductions merge in a
+    fixed order). Tolerances: a float32 tensor within 1e-5 of the largest
+    magnitude of the plain version's (the kernels take Welford's moments
+    and sum each thread's rows before a fixed tree, the plain version
+    PyTorch's own reductions); each element of a bf16 tensor within one
+    bf16 ulp of its own plain value plus that float32 term, since a float32
+    difference of one unit can move its rounding; the statistics and
+    running statistics 1e-5 absolute (values near 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from connect4_tpu_torch.models import batch_norm as B
+
+    x, s, g_c, g_f, bn = _bn_case(rows, c, dtype, skip, seed=c + 7 * skip)
+    before = (B.batch_norm_act.launches, B.batch_norm_act.backward_launches)
+    got = _bn_kernel_run(x, s, g_c, g_f, bn)
+    assert (B.batch_norm_act.launches, B.batch_norm_act.backward_launches) == (before[0] + 1, before[1] + 1)
+    again = _bn_kernel_run(x, s, g_c, g_f, bn)
+    for k, v in got.items():
+        assert v is None or torch.equal(v, again[k]), f"not bit-equal on a second run: {k}"
+
+    two = dtype != torch.float32
+    w, b = bn.weight.detach(), bn.bias.detach()
+    rm, rv = bn.running_mean.clone(), bn.running_var.clone()
+    y_c, y_f, stats = B._forward_plain(x, w, b, rm, rv, s, True)
+    dx, dgamma, dbeta, dskip = B._backward_plain(x, s, got["stats"], g_c, g_f if two else None)
+    ref = dict(y_c=y_c, y_f=y_f, dx=dx, dgamma=dgamma, dbeta=dbeta, dskip=dskip, mean=rm, var=rv, stats=stats)
+    for k, r in ref.items():
+        if r is None:
+            assert got[k] is None, k
+            continue
+        diff = (got[k].float() - r.float()).abs()
+        if k in ("mean", "var", "stats"):
+            assert diff.max().item() <= 1e-5, k
+            continue
+        tol = 1e-5 * r.float().abs().max() + (_bf16_ulp(r) if r.dtype == torch.bfloat16 else 0.0)
+        assert bool((diff <= tol).all()), (k, (diff - tol).max().item())
+    if not two:
+        assert got["y_f"] is got["y_c"]
+
+
+@pytest.mark.gpu
+def test_train_step_runs_fused_batch_norm_nhwc_on_card(monkeypatch):
+    """One profiled train step of the F=64, 6-block bf16 net at batch 4096
+    on stored uint8 NCHW planes, as the loop and the benchmark feed it:
+    no cuDNN BatchNorm kernel and no layout transpose on the card, the
+    fused kernels by name, and 1 + 2 x 6 + 2 = 15 counted forward and 15
+    backward launches. Every argument the net hands
+    ``batch_norm_act_unchecked`` passes ``batch_norm_act``'s checks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
+
+    from connect4_tpu_torch.config import ModelConfig
+    from connect4_tpu_torch.models import batch_norm as B
+    from connect4_tpu_torch.models.batch_norm import batch_norm_act
+
+    unchecked = B.batch_norm_act_unchecked
+
+    def checked(x, bn, skip=None, stream=False):
+        B._check(x, skip, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        return unchecked(x, bn, skip, stream)
+
+    monkeypatch.setattr(B, "batch_norm_act_unchecked", checked)
+    from connect4_tpu_torch.training.learner import init_train_state, make_train_step
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    n = 4096
+    planes = _positions(n, g).reshape(n, 6, 7, 3).permute(0, 3, 1, 2).to(torch.uint8).contiguous()
+    values = torch.randint(0, 3, (n,), generator=g, device="cuda").float() / 2
+    priors = torch.softmax(torch.randn((n, 7), generator=g, device="cuda"), -1)
+    config = ModelConfig(net_config=NetConfig(filters=64, n_fc_layers=6, n_residuals=6, compute_dtype="bfloat16"))
+    state = init_train_state(config, torch.Generator().manual_seed(0), "cuda")
+    step = make_train_step(state.net, state.optimizer)
+    step(planes, values, priors)  # warm-up: cuDNN's plans, the kernels' build
+    torch.cuda.synchronize()
+    before = (batch_norm_act.launches, batch_norm_act.backward_launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loss = float(step(planes, values, priors)["loss"])
+        torch.cuda.synchronize()
+    assert (batch_norm_act.launches - before[0], batch_norm_act.backward_launches - before[1]) == (15, 15)
+    kernels = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    banned = [k for k in kernels if any(p in k for p in ("bn_fw", "bn_bw", "nchwToNhwc", "nhwcToNchw"))]
+    assert not banned, banned
+    parts = ("fwd_stats", "fwd_apply", "bwd_reduce", "bwd_apply")
+    assert {p for p in parts for k in kernels if f"batch_norm_act_{p}" in k} == set(parts), sorted(kernels)
+    assert loss == loss and loss > 0
