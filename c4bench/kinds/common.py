@@ -9,6 +9,7 @@ from typing import Dict
 
 import torch
 
+from c4bench import builders
 from c4bench.reference import net as ref_net
 
 
@@ -25,23 +26,26 @@ def generator(seed: int, device, *tags) -> torch.Generator:
 @torch.no_grad()
 def make_weights(net: dict, seed: int, device) -> Dict[str, torch.Tensor]:
     """The net's weights and BatchNorm statistics, float32 on ``device``,
-    from two draws of a generator on ``device``: kernels normal with
+    from two draws of a generator on ``device``, each leaf as its
+    architecture marks it (``ref_net.leaves``): kernels normal with
     variance 1 / fan-in, Dense and 1x1-conv biases 0.1 / sqrt(fan-in)
     normal, BatchNorm scales 1 + 0.1 normal and shifts 0.1 normal, running
     means 0.1 normal, running variances uniform in [1, 1.5)."""
-    shapes = ref_net.param_shapes(net)
+    leaves = ref_net.leaves(net)
     g = generator(seed, device, "weights")
-    sizes = [torch.Size(s).numel() for s in shapes.values()]
+    sizes = [torch.Size(leaf.shape).numel() for leaf in leaves.values()]
     normal = torch.randn(sum(sizes), generator=g, device=device).split(sizes)
     uniform = torch.rand(sum(sizes), generator=g, device=device).split(sizes)
     out, fan_in = {}, None
-    for (name, shape), z, u in zip(shapes.items(), normal, uniform):
+    for (name, (shape, kind)), z, u in zip(leaves.items(), normal, uniform):
         z, u = z.view(shape), u.view(shape)
-        leaf = name.rsplit(".", 1)[1]
-        if ".bn" in name:
-            out[name] = {"weight": 1.0 + 0.1 * z, "bias": 0.1 * z, "running_mean": 0.1 * z,
-                         "running_var": 1.0 + 0.5 * u}[leaf]
-        elif leaf == "weight":
+        if kind == ref_net.BN_SCALE:
+            out[name] = 1.0 + 0.1 * z
+        elif kind in (ref_net.BN_SHIFT, ref_net.BN_MEAN):
+            out[name] = 0.1 * z
+        elif kind == ref_net.BN_VAR:
+            out[name] = 1.0 + 0.5 * u
+        elif kind == ref_net.KERNEL:
             fan_in = torch.Size(shape[1:]).numel()
             out[name] = z / fan_in ** 0.5
         else:  # the bias of the layer whose kernel came just before
@@ -51,21 +55,9 @@ def make_weights(net: dict, seed: int, device) -> Dict[str, torch.Tensor]:
 
 def program_net(net: dict, weights: Dict[str, torch.Tensor], device):
     """The program's net of this configuration on ``device``, holding
-    ``weights`` (its default initialisation runs on ``device`` and is
-    overwritten), in inference mode."""
-    from connect4_tpu_torch.config import NetConfig
-    from connect4_tpu_torch.models.net import Connect4Net
-
-    config = NetConfig(channels=net["channels"], filters=net["filters"], n_fc_layers=net["n_fc_layers"],
-                       n_residuals=net["n_residuals"], compute_dtype=net["compute_dtype"])
-    with torch.device(device):
-        model = Connect4Net(config)
-    state = {k: v.clone() for k, v in weights.items()}
-    for k, v in model.state_dict().items():
-        if k.endswith("num_batches_tracked"):
-            state[k] = v
-    model.load_state_dict(state, strict=True)
-    return model.eval()
+    ``weights``, in inference mode: built by the program side of the net's
+    architecture (``c4bench/builders/<arch>.py``)."""
+    return builders.find(net).build(net, weights, device)
 
 
 class SetupClock:

@@ -14,6 +14,12 @@ the third. The window goes on from the fourth step through the permutation,
 time the window's rows are used up, as an epoch), and closes at the first
 chunk boundary after ``seconds``.
 
+Then the card's time a step (``card_ms_per_step``): ``CARD_STEPS`` more
+steps, one at a time, each queued by the host while a spin kernel holds the
+card, and timed by CUDA events around the step alone, so that the card runs
+it without waiting for the host. Where the host paces the window (the card
+idle most of it), this is what the step costs the card.
+
 Judged once the window has closed, the memory peak has been read and the
 program's state is freed: the first three steps, which the reference
 follows from the same weights on the same rows in float32 (``sgd_steps``):
@@ -30,6 +36,7 @@ from typing import Dict
 
 import torch
 
+from c4bench import builders
 from c4bench import trace as tr
 from c4bench.kinds import common
 from c4bench.reference import board as B
@@ -43,6 +50,13 @@ WARM_STEPS = (1, 2)  # the first three steps, in the calls that take them
 GAPS = ("loss_gap", "grad_gap", "change_gap")
 # the numbers whose ratios to float8's make ``precision_vs_fp8``
 PRECISION = ("grad_gap", "change_gap", "grad_median", "change_median")
+
+
+# ``card_ms_per_step``: the steps timed, and the spin (clock cycles of the
+# card) that holds the card while the host queues one; doubled after a step
+# whose start the card reached before the host had queued all of it
+CARD_STEPS = 24
+SPIN_CYCLES = 3 * 10**8
 
 
 # the shares of value targets 1, 0.5 and 0 in the replay window
@@ -88,13 +102,12 @@ def make_window(n: int, seed: int, device):
 
 
 def _model_config(cfg: dict):
-    from connect4_tpu_torch.config import ModelConfig, NetConfig
+    from connect4_tpu_torch.config import ModelConfig
 
     t = cfg["train"]
-    return ModelConfig(net_config=NetConfig(**{k: cfg["net"][k] for k in (
-        "channels", "filters", "n_fc_layers", "n_residuals", "compute_dtype")}),
-        weight_decay=t["weight_decay"], momentum=t["momentum"], initial_lr=t["lr"],
-        batch_size=t["batch_size"], n_training_epochs=t["n_training_epochs"])
+    return ModelConfig(net_config=builders.find(cfg["net"]).net_config(cfg["net"]),
+                       weight_decay=t["weight_decay"], momentum=t["momentum"], initial_lr=t["lr"],
+                       batch_size=t["batch_size"], n_training_epochs=t["n_training_epochs"])
 
 
 def run(cfg: dict, traffic: dict, seed: int, seconds: float, traced: bool, device, t_start: float,
@@ -144,6 +157,8 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, traced: bool, devic
     # the first three batches, each in the order of its rows' losses under
     # the first weights (the reference's), so that a step that leaves part
     # of its batch out moves its loss
+    if cuda:
+        torch.cuda._sleep(1000)  # the spin kernel of ``card_ms_per_step``, loaded
     ref_net.full_float32()
     with torch.no_grad():
         for i in range(sum(WARM_STEPS)):
@@ -194,6 +209,7 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, traced: bool, devic
     window_s = time.perf_counter() - t_window
     if traced and not seg["steps"]:
         raise RuntimeError("the window closed before its traced steps began")
+    card = card_ms_per_step(chunk, window_losses) if cuda else None
     memory_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     nonfinite = int((~torch.isfinite(torch.cat(window_losses))).sum())
     warm_losses = warm_losses.tolist()
@@ -217,7 +233,8 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, traced: bool, devic
         half = [tuple(a[: batch // 2] for a in b) for b in batches]  # half of each batch left out
         r = ref_net.sgd_steps(weights, cfg["net"], half, *hp)
         gaps.update({f"{k}_half": v for k, v in _numbers(_gaps((r[0], r[1], r[3]), ref, weights), low_diag).items()})
-        trainable = {k: v for k, v in weights.items() if ref_net.trainable(k)}
+        moved = ref_net.trainable(cfg["net"])
+        trainable = {k: v for k, v in weights.items() if k in moved}
         with torch.no_grad():  # the state left unchanged: every loss at the first weights
             still = [float(ref_net.loss(weights, cfg["net"], *(a.float() for a in b))) for b in batches]
         zero = {k: torch.zeros_like(v) for k, v in trainable.items()}
@@ -233,15 +250,49 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, traced: bool, devic
         "exact": {"losses_nonfinite": nonfinite},
         "gaps": gaps,
         "diag": diag,
-        "attempted": sum(WARM_STEPS) + steps_total,
+        "attempted": sum(WARM_STEPS) + steps_total + (CARD_STEPS if cuda else 0),
         "counts": {"steps": steps_total, "positions": steps_total * batch, "window_rows": n,
                    "losses": warm_losses, "reference_losses": ref[0]},
     }
+    if card is not None:
+        out["e2e"]["train_card_ms_per_step"] = card.pop("ms_per_step")
+        out["counts"]["card_steps"] = card
     if traced:
         summary = tr.summary(seg["events"])
-        summary.update(steps=seg["steps"], positions=seg["steps"] * batch, net=cfg["net"])
+        summary.update(steps=seg["steps"], positions=seg["steps"] * batch, net=cfg["net"],
+                       wall_positions_per_s=steps_total * batch / window_s)
         out["trace"] = summary
     return out
+
+
+def card_ms_per_step(chunk, losses: list) -> Dict:
+    """The card's milliseconds a step over ``CARD_STEPS`` steps, each
+    queued by the host while a spin kernel holds the card and timed by CUDA
+    events around that step alone (``ms_per_step``, the sum over the steps
+    over their number). A step whose start event the card had reached before
+    the host had queued all of it may have waited for the host: it is not
+    timed (``starved``) and the spin doubles. ``spin_ms``: the last spin as
+    the card ran it. Each step's loss goes to ``losses``."""
+    spin, timed, starved = SPIN_CYCLES, [], 0
+    while len(timed) < CARD_STEPS:
+        if starved > CARD_STEPS:
+            raise RuntimeError(f"{starved} steps ran before the host had queued them, "
+                               f"{len(timed)} of {CARD_STEPS} timed")
+        held, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        held.record()
+        torch.cuda._sleep(spin)
+        start.record()
+        losses.append(chunk(1))
+        end.record()
+        if start.query():
+            starved += 1
+            spin *= 2
+        else:
+            timed.append((held, start, end))
+    torch.cuda.synchronize()
+    total = sum(a.elapsed_time(b) for _, a, b in timed)
+    return {"ms_per_step": total / len(timed), "starved": starved,
+            "spin_ms": timed[-1][0].elapsed_time(timed[-1][1])}
 
 
 def _numbers(diag: Dict, low: Dict) -> Dict[str, float]:

@@ -1,38 +1,49 @@
-"""The value and policy net, its loss and its SGD step, in plain PyTorch.
+"""The value and policy net's shared parts, its loss and its SGD step, in
+plain PyTorch.
 
-Written from the published architecture of the oinkoink net
-(willis-richard/connect4, ``oinkoink/neural/pytorch/net.py``): a 3x3 conv
-block and ``n_residuals`` residual blocks of ``filters`` channels, each conv
-followed by BatchNorm and a leaky ReLU (slope 0.01); a value head of a 1x1
-conv to one channel, BatchNorm, leaky ReLU, ``n_fc_layers`` Dense layers of
-42 with no activation between them, a leaky ReLU, a Dense to one output and
-``(tanh + 1) / 2``; a policy head of a 1x1 conv to two channels, BatchNorm,
-leaky ReLU and a Dense to 7 under a softmax. The heads flatten their conv
-output in (row, column, channel) order. BatchNorm's epsilon is 1e-5; in
-training it normalises by the batch's mean and biased variance.
+A configuration's ``net`` names its architecture under ``"arch"``
+(``"oinkoink-resnet"`` where it names none). The architecture is the file
+``c4bench/reference/archs/<arch>.py``, found by that name (``arch``): its
+``KEYS`` (the ``net`` keys it reads besides ``arch``), its ``leaves(net)``
+(every weight and statistic in order, built with ``Leaves``, which marks
+each as a kernel, a bias or a BatchNorm scale, shift or statistic), its
+forward ``body(ops, planes, net)`` written with the layers of ``Ops``, and
+its operation counts ``tower_flops(net)`` and ``head_flops(net)``. What does
+not depend on the architecture is here and dispatches by the name:
+``forward``, ``evaluate``, ``sample_losses``, ``loss``, ``sgd_steps`` and
+``trainable``.
 
-Weights are a dict of tensors under the names of ``param_shapes``; nothing
-here reads the program. ``precision`` is ``"f32"`` (IEEE float32: TF32 must
-be off, see ``full_float32``) or ``"fp8"``, the control: every conv and
-Dense input and weight rounded to float8 e4m3 with a per-tensor scale that
-maps its largest magnitude to 448, products summed in float32; backward,
-each product's output gradient and each gradient its inputs pass back
-rounded to float8 e5m2 with such a scale, as float8 training does.
+BatchNorm's epsilon is 1e-5; in training it normalises by the batch's mean
+and biased variance. Weights are a dict of tensors under the names of
+``leaves``; nothing here reads the program. ``precision`` is ``"f32"``
+(IEEE float32: TF32 must be off, see ``full_float32``) or ``"fp8"``, the
+control: every conv and Dense input and weight rounded to float8 e4m3 with a
+per-tensor scale that maps its largest magnitude to 448, products summed in
+float32; backward, each product's output gradient and each gradient its
+inputs pass back rounded to float8 e5m2 with such a scale, as float8
+training does. Every architecture's body gets both through ``Ops``.
 """
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Set, Tuple
 
 import torch
 import torch.nn.functional as F
 
-SLOPE = 0.01
+from c4bench import plugins
+
 EPS = 1e-5
 CELLS = 42
 FP8_MAX = 448.0
 FP8_E5M2_MAX = 57344.0
+DEFAULT_ARCH = "oinkoink-resnet"
+ARCHS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "archs")
+# the kinds of leaf, which ``make_weights`` draws each in its own way
+KERNEL, BIAS, BN_SCALE, BN_SHIFT, BN_MEAN, BN_VAR = "kernel", "bias", "bn_scale", "bn_shift", "bn_mean", "bn_var"
+STATISTICS = (BN_MEAN, BN_VAR)
 
 Weights = Dict[str, torch.Tensor]
 
@@ -43,44 +54,56 @@ def full_float32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def param_shapes(net: dict) -> "OrderedDict[str, Tuple[int, ...]]":
-    """Every weight and statistic of the net described by ``net`` (the
-    configuration's ``net`` object), in a fixed order."""
-    c, f = net["channels"], net["filters"]
-    out: "OrderedDict[str, Tuple[int, ...]]" = OrderedDict()
+def arch_name(net: dict) -> str:
+    return net.get("arch", DEFAULT_ARCH)
 
-    def conv(name, cin, cout, k, bias):
-        out[f"{name}.weight"] = (cout, cin, k, k)
+
+def arch(net: dict):
+    """The reference file of ``net``'s architecture, ``ARCHS/<arch>.py``;
+    exits where there is none, or where ``net`` has keys the architecture
+    does not read or lacks keys it does."""
+    name = arch_name(net)
+    module = plugins.load(os.path.join(ARCHS, f"{name}.py"), f"reference of architecture {name!r}")
+    keys = set(net) - {"arch"}
+    if keys != set(module.KEYS):
+        raise SystemExit(f"c4bench: architecture {name!r} reads {sorted(module.KEYS)}; the net has {sorted(keys)}")
+    return module
+
+
+class Leaf(NamedTuple):
+    shape: Tuple[int, ...]
+    kind: str
+
+
+class Leaves(OrderedDict):
+    """An architecture's weights and statistics in a fixed order, each name
+    with its ``Leaf``: its shape and its kind."""
+
+    def conv(self, name: str, cin: int, cout: int, k: int, bias: bool) -> None:
+        self[f"{name}.weight"] = Leaf((cout, cin, k, k), KERNEL)
         if bias:
-            out[f"{name}.bias"] = (cout,)
+            self[f"{name}.bias"] = Leaf((cout,), BIAS)
 
-    def bn(name, ch):
-        for leaf in ("weight", "bias", "running_mean", "running_var"):
-            out[f"{name}.{leaf}"] = (ch,)
+    def dense(self, name: str, cin: int, cout: int) -> None:
+        self[f"{name}.weight"] = Leaf((cout, cin), KERNEL)
+        self[f"{name}.bias"] = Leaf((cout,), BIAS)
 
-    conv("conv_block.conv", c, f, 3, False)
-    bn("conv_block.bn", f)
-    for i in range(net["n_residuals"]):
-        conv(f"res_blocks.{i}.conv0", f, f, 3, False)
-        bn(f"res_blocks.{i}.bn0", f)
-        conv(f"res_blocks.{i}.conv1", f, f, 3, False)
-        bn(f"res_blocks.{i}.bn1", f)
-    conv("value_head.conv", f, 1, 1, True)
-    bn("value_head.bn", 1)
-    for i in range(net["n_fc_layers"]):
-        out[f"value_head.fcs.{i}.weight"] = (CELLS, CELLS)
-        out[f"value_head.fcs.{i}.bias"] = (CELLS,)
-    out["value_head.out.weight"] = (1, CELLS)
-    out["value_head.out.bias"] = (1,)
-    conv("policy_head.conv", f, 2, 1, True)
-    bn("policy_head.bn", 2)
-    out["policy_head.fc.weight"] = (7, 2 * CELLS)
-    out["policy_head.fc.bias"] = (7,)
-    return out
+    def bn(self, name: str, ch: int) -> None:
+        for leaf, kind in (("weight", BN_SCALE), ("bias", BN_SHIFT), ("running_mean", BN_MEAN),
+                           ("running_var", BN_VAR)):
+            self[f"{name}.{leaf}"] = Leaf((ch,), kind)
 
 
-def trainable(name: str) -> bool:
-    return not name.endswith(("running_mean", "running_var"))
+def leaves(net: dict) -> Leaves:
+    """Every weight and statistic of the net described by ``net`` (the
+    configuration's ``net`` object), in a fixed order, with its kind."""
+    return arch(net).leaves(net)
+
+
+def trainable(net: dict) -> Set[str]:
+    """The names of ``net``'s leaves that SGD moves: all but the BatchNorm
+    statistics."""
+    return {k for k, leaf in leaves(net).items() if leaf.kind not in STATISTICS}
 
 
 def _round(x: torch.Tensor, dtype, top: float) -> torch.Tensor:
@@ -120,11 +143,10 @@ class _GradFp8(torch.autograd.Function):
         return _round(grad, torch.float8_e5m2, FP8_E5M2_MAX)
 
 
-def _lrelu(x):
-    return torch.where(x >= 0, x, x * SLOPE)
+class Ops:
+    """The layers an architecture's body is written with, over the weights
+    ``w`` by name, in ``precision``, with BatchNorm in training or inference."""
 
-
-class _Net:
     def __init__(self, w: Weights, precision: str, train: bool):
         if precision not in ("f32", "fp8"):
             raise ValueError(f"precision {precision!r}")
@@ -150,32 +172,11 @@ class _Net:
         scale = w[f"{name}.weight"] / torch.sqrt(var + EPS)
         return (x - mean[None, :, None, None]) * scale[None, :, None, None] + w[f"{name}.bias"][None, :, None, None]
 
-    def block(self, x, conv, bn):
-        return _lrelu(self.bn(self.conv(x, conv, 1), bn))
-
-    def __call__(self, planes: torch.Tensor, n_res: int, n_fc: int):
-        x = self.block(planes, "conv_block.conv", "conv_block.bn")
-        for i in range(n_res):
-            y = self.block(x, f"res_blocks.{i}.conv0", f"res_blocks.{i}.bn0")
-            y = self.bn(self.conv(y, f"res_blocks.{i}.conv1", 1), f"res_blocks.{i}.bn1")
-            x = _lrelu(y + x)
-        n = x.shape[0]
-        v = _lrelu(self.bn(self.conv(x, "value_head.conv", 0), "value_head.bn"))
-        v = v.permute(0, 2, 3, 1).reshape(n, -1)
-        for i in range(n_fc):
-            v = self.dense(v, f"value_head.fcs.{i}")
-        v = self.dense(_lrelu(v), "value_head.out")
-        value = (torch.tanh(v[:, 0]) + 1.0) * 0.5
-        p = _lrelu(self.bn(self.conv(x, "policy_head.conv", 0), "policy_head.bn"))
-        p = p.permute(0, 2, 3, 1).reshape(n, -1)
-        prior = torch.softmax(self.dense(p, "policy_head.fc"), dim=-1)
-        return value, prior
-
 
 def forward(w: Weights, net: dict, planes: torch.Tensor, precision: str = "f32", train: bool = False):
     """``(value [N] in [0, 1], prior [N, 7])`` of float32 NCHW ``planes``
     ``[N, 3, 6, 7]``; ``train`` normalises by the batch's statistics."""
-    return _Net(w, precision, train)(planes.float(), net["n_residuals"], net["n_fc_layers"])
+    return arch(net).body(Ops(w, precision, train), planes.float(), net)
 
 
 @torch.no_grad()
@@ -214,15 +215,16 @@ def sgd_steps(w0: Weights, net: dict, batches: Sequence[tuple], lr: float, momen
     loss, the first gradient as the optimizer takes it (gradient plus
     ``weight_decay`` times the weight), the gradient alone, and the
     trainable leaves after the last step."""
-    names = [k for k in w0 if trainable(k)]
+    moved = trainable(net)
+    names = [k for k in w0 if k in moved]
     params = {k: w0[k].detach().clone().float() for k in names}
-    fixed = {k: v for k, v in w0.items() if not trainable(k)}
+    fixed = {k: v for k, v in w0.items() if k not in moved}
     buf: Weights = {}
     losses, first, grad0 = [], {}, {}
     for i, (planes, values, policies) in enumerate(batches):
-        leaves = {k: v.requires_grad_(True) for k, v in params.items()}
-        total = loss({**fixed, **leaves}, net, planes.float(), values.float(), policies.float(), precision)
-        grads = torch.autograd.grad(total, [leaves[k] for k in names])
+        live = {k: v.requires_grad_(True) for k, v in params.items()}
+        total = loss({**fixed, **live}, net, planes.float(), values.float(), policies.float(), precision)
+        grads = torch.autograd.grad(total, [live[k] for k in names])
         losses.append(float(total.detach()))
         with torch.no_grad():
             for k, g in zip(names, grads):

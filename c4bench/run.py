@@ -6,8 +6,14 @@ from the root of a checkout that holds ``BENCHMARK.json``, ``c4bench/`` and
 the program. Everything is found by the names in ``BENCHMARK.json``: the
 cell's configuration file, its traffic mix ``c4bench/traffic/<traffic>.json``
 (whose ``kind`` names the driver, ``c4bench/kinds/<kind>.py``), its limits
-``c4bench/limits/<cell>.json`` and each per-layer metric's reader
-``c4bench/metrics/<metric>.py``.
+``c4bench/limits/<cell>.json``, each per-layer metric's reader
+``c4bench/metrics/<metric>.py``, and the architecture that the
+configuration's ``net`` names under ``"arch"`` (``"oinkoink-resnet"`` where
+it names none): its plain reference and operation counts
+``c4bench/reference/archs/<arch>.py`` and the builder of the program's net
+``c4bench/builders/<arch>.py``. So a later cell, with a new configuration,
+architecture, traffic mix or metric, is new files and new entries in
+``BENCHMARK.json`` alone, and edits no file of the harness.
 
 With ``--trace 0`` the result carries the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics, read from a profiled part of the same
@@ -25,11 +31,12 @@ T_START = time.perf_counter()  # set-up is counted from here
 
 import argparse  # noqa: E402
 import importlib  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+
+from c4bench import plugins  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERE = os.path.join(ROOT, "c4bench")
@@ -51,7 +58,8 @@ def manifest() -> dict:
 
 
 def cell_parts(bench: dict, workload: str):
-    """``(cell, configuration, traffic, limits)`` of ``workload``."""
+    """``(cell, configuration, traffic, limits)`` of ``workload``; exits
+    where the configuration's architecture has no files."""
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
         raise SystemExit(f"c4bench: no workload {workload!r} in BENCHMARK.json")
@@ -60,16 +68,17 @@ def cell_parts(bench: dict, workload: str):
     cfg = load_json(os.path.join(ROOT, config["file"]))
     traffic = load_json(os.path.join(HERE, "traffic", f"{cell['traffic']}.json"))
     limits = load_json(os.path.join(HERE, "limits", f"{workload}.json"))
+    from c4bench import builders
+    from c4bench.reference import net as ref_net
+
+    ref_net.arch(cfg["net"])
+    builders.find(cfg["net"])
     return cell, cfg, traffic, limits
 
 
 def reader(name: str):
     """The ``read`` function of the per-layer metric ``name``."""
-    path = os.path.join(HERE, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"c4bench_metric_{name.replace('.', '_')}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return plugins.load(os.path.join(HERE, "metrics", f"{name}.py"), f"reader of metric {name!r}").read
 
 
 def applies(metric: dict, workload: str) -> bool:
@@ -114,11 +123,11 @@ def main(argv=None) -> int:
     parser.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = parser.parse_args(argv)
 
-    bench = manifest()
-    cell, cfg, traffic, limits = cell_parts(bench, args.workload)
     # the program's kernel builds go to build/ in the checkout; a Triton cache
     # would go beside them, at a fixed path
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(ROOT, "build", "triton"))
+    bench = manifest()
+    cell, cfg, traffic, limits = cell_parts(bench, args.workload)
     import torch
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
