@@ -46,7 +46,20 @@ fatal on failure:
    and with fresh nets at F=16, 32, 128, 256 and (the layer kernel) 320,
    384, 512, 520, 1024 at B=4096, 2048, 512 and 64 (the plain version
    rounded to nearest only: its emulated form takes tens of seconds at
-   F=256);
+   F=256); then [se], Leela Chess Zero's squeeze-and-excitation body
+   (``SE_NET``): the wide kernel's SE instantiation bit for bit against its
+   emulation on two blocks at ``SE_COMPARE_BOARDS`` (B=4096 among them) and
+   at the full 20 blocks at ``SE_DEPTH_BOARDS``, and timed at 20 blocks
+   beside the ResNet's instantiation at the same depth, its plain version,
+   cuDNN with the gate in PyTorch ops, and the bound; the learner's gate
+   kernels (``se_gate_fwd``, ``se_gate_bwd``) and the BatchNorm pair at ReLU
+   and at no activation (``SE_BN_SHAPES``), each at 4096 boards against its
+   plain version and timed beside its bound by bytes; a fresh SE net's
+   self-play through ``make_net_evaluator`` + ``make_refill_play_fn``
+   (``SE_SELFPLAY``: every game finished and legal, 20 gates a tower
+   forward, every batch held at full depth) and an SE train step at batch
+   4096 (the gate kernels 20 times each way, the pair 43), each with the
+   counters set to 0 just before it;
 4. check the search and self-play on the card against the same code on
    the CPU with the deterministic centre evaluator; then [graph]: the
    search replayed from CUDA graphs (every search on the card runs so,
@@ -207,7 +220,13 @@ fatal on failure:
     no single PyTorch call computes a descent, so its ``library_ms`` is
     null; ``batch_norm_act``: the fused BatchNorm pair at C=64 with a
     skip and the stream, its launches in phases 6-8, every shape's times
-    and its host cost), the card's name and power limit,
+    and its host cost; ``tower_wide_se``: the wide kernel's
+    squeeze-and-excitation instantiation, its launches and gates in [se]'s
+    self-play and [se]'s numbers at B=4096; ``se_gate``: the learner's gate
+    kernels, their launches in [se]'s train step and their numbers at 4096
+    boards; ``batch_norm_act_se``: the pair at ReLU and none, its launches
+    in [se]'s train step and every shape's times), the
+    card's name and power limit,
     and last ``{"ok": true,
     "device": {...}}``.
 
@@ -318,6 +337,23 @@ WIDEST = dict(games=64, slots=64, simulations=64, parallel_sims=8, seed=0)
 # the widths [compare] holds at batches of their own (see WIDE_BOARDS and LAYER_BOARDS)
 COMPARE_AT = {WIDE_NET["filters"]: WIDE_BOARDS, WIDER_NET["filters"]: WIDER_BOARDS, 520: (64, 1),
               WIDEST_NET["filters"]: WIDEST_BOARDS}
+# [se]: Leela Chess Zero's squeeze-and-excitation body (config.SENetConfig)
+# at the benchmark's lc0-t40-se-f256-r20 widths. The kernel is held bit for
+# bit against its emulation on two blocks at SE_COMPARE_BOARDS (4096 the
+# lc0t40-selfplay cell's leaf batch) and at SE_NET's full depth at
+# SE_DEPTH_BOARDS, every batch SE_SELFPLAY's pool launches (64 roots, 512
+# leaves); then timed at full depth at WIDE_TIME_BOARDS beside the ResNet's
+# instantiation at the same depth. The learner's gate kernels are held
+# against their plain version at SE_GATE_BOARDS, and the BatchNorm pair at
+# every (channels, skip, stream, act) the SE train step adds to BN_SHAPES:
+# the input block's BatchNorm (ReLU and the stream), a block's first (ReLU)
+# and its second (no activation, the stream, which feeds the gate).
+SE_NET = dict(filters=256, n_fc_layers=6, n_residuals=20, compute_dtype="bfloat16", se_ratio=8)
+SE_COMPARE_BOARDS = (4096, 2048, 49)
+SE_DEPTH_BOARDS = (512, 64)
+SE_SELFPLAY = dict(slots=64, games=64, simulations=64, parallel_sims=8, seed=0)
+SE_GATE_BOARDS = 4096
+SE_BN_SHAPES = ((256, False, True, "relu"), (256, False, False, "relu"), (256, False, True, "none"))
 
 # Stated limits of the learner on the card against the CPU after three steps
 # at batch 512 (phase 6). float32: IEEE float32 on both, summed in different
@@ -593,6 +629,270 @@ def time_widths(dev, generator):
     return out
 
 
+def cudnn_se_tower(folded, config):
+    """The folded squeeze-and-excitation tower as cuDNN bf16 convolutions
+    (channels_last) and the gate in PyTorch ops (``se_gate_plain``, float32): the
+    yardstick for [se]'s ``library_ms``. Not used by the port."""
+    import torch
+    import torch.nn.functional as F
+
+    from connect4_tpu_torch.models.se_gate import se_gate_plain
+
+    w = {k: v.to(torch.bfloat16) for k, v in folded.items()}
+
+    def run(nhwc):
+        x = nhwc.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        x = torch.relu(F.conv2d(x, w["conv0.weight"], w["conv0.bias"], padding=1))
+        for i in range(config.n_residuals):
+            y = torch.relu(F.conv2d(x, w[f"res.{2 * i}.weight"], w[f"res.{2 * i}.bias"], padding=1))
+            y = F.conv2d(y, w[f"res.{2 * i + 1}.weight"], w[f"res.{2 * i + 1}.bias"], padding=1)
+            x = se_gate_plain(y, x, *(w[f"se_fc{n}.{i}.{leaf}"] for n in (1, 2) for leaf in ("weight", "bias")),
+                              torch.bfloat16)[1]
+        return x
+
+    return run
+
+
+def se_gate_check(dev) -> dict:
+    """[se]'s gate: ``se_gate``'s kernels (``se_gate_fwd``, ``se_gate_bwd``)
+    at ``SE_GATE_BOARDS`` boards of ``SE_NET``'s width against the plain
+    version on the same card tensors, as ``tests/test_torch_se_gpu.py``
+    holds them: both outputs against ``_GatePlain``'s forward, every
+    gradient against ``backward_plain`` given what the kernels' forward
+    kept, each element within ``TOL_BN``'s float32 term of the plain
+    tensor's largest magnitude (the bf16 copy one bf16 ulp more); then the
+    kernels' times, forward and forward plus backward, beside the plain
+    version's and the bound by bytes (each float32 or bf16 activation the
+    gate must read or write once, as ``se_gate_bytes`` of the benchmark's
+    reference counts them)."""
+    import torch
+
+    from connect4_tpu_torch.models import se_gate as G
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    n, c = SE_GATE_BOARDS, SE_NET["filters"]
+    sq = c // SE_NET["se_ratio"]
+
+    def rand(*shape, nhwc=False, scale=1.0):
+        t = torch.randn(*shape, generator=g, device=dev) * scale
+        return t.contiguous(memory_format=torch.channels_last) if nhwc else t
+
+    args = [rand(n, c, 6, 7, nhwc=True), rand(n, c, 6, 7, nhwc=True), rand(sq, c, scale=c ** -0.5), rand(sq),
+            rand(2 * c, sq, scale=sq ** -0.5), rand(2 * c)]
+    d_out, d_copy = rand(n, c, 6, 7, nhwc=True), rand(n, c, 6, 7, nhwc=True).to(torch.bfloat16)
+
+    def both(keep=None):
+        leaves = [a.detach().requires_grad_(True) for a in args]
+        out, copy_ = G.se_gate(*leaves, torch.bfloat16)
+        if keep is not None:
+            keep.extend(out.grad_fn.saved_tensors)  # (y, out, s, z, g, w1, w2)
+        torch.autograd.backward([out, copy_], [d_out, d_copy])
+        return [out, copy_] + [t.grad for t in leaves]
+
+    G.se_gate.launches = G.se_gate.backward_launches = 0
+    kept = []
+    got = both(kept)
+    torch.cuda.synchronize()
+    counted = (G.se_gate.launches, G.se_gate.backward_launches)
+    y, out, s, z, gate, w1, w2 = kept
+    with torch.no_grad():
+        want = list(G.se_gate_plain(*args, torch.bfloat16))
+        want += list(G.backward_plain(d_out, d_copy, y, s, z, gate, out, w1, w2))
+    excess = {}
+    for name, a, r in zip(("out", "copy", "d_y", "d_skip", "d_w1", "d_b1", "d_w2", "d_b2"), got, want):
+        limit = TOL_BN["float32"] * r.float().abs().max() + (bf16_ulp(r) if r.dtype == torch.bfloat16 else 0.0)
+        excess[name] = ((a.float() - r.float()).abs() / torch.clamp(limit, min=torch.finfo(torch.float32).tiny)
+                        ).max().item()
+    fwd_bytes = n * 42 * c * (4 + 4 + 4 + 2)
+    both_bytes = fwd_bytes + n * 42 * c * (4 + 2 + 4 + 4 + 4 + 4)
+    with torch.no_grad():
+        t = {"fwd_ms": timed_ms(lambda: G.se_gate(*args, torch.bfloat16)),
+             "plain_fwd_ms": timed_ms(lambda: G.se_gate_plain(*args, torch.bfloat16))}
+    t["ms"] = timed_ms(both)
+    t["ms_again"] = timed_ms(both)
+    t.update(boards=n, channels=c, squeeze=sq, bound_fwd_ms=fwd_bytes / HBM_BYTES_PER_S * 1e3,
+             bound_ms=both_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=both_bytes, excess=excess,
+             launches=counted[0], backward_launches=counted[1])
+    log(f"[se] gate kernels, {n} boards x {c} channels, squeeze {sq}: forward {t['fwd_ms']:.4f} ms (bound "
+        f"{t['bound_fwd_ms']:.4f}, plain {t['plain_fwd_ms']:.4f}), forward and backward {t['ms']:.4f} ms (again "
+        f"{t['ms_again']:.4f}; bound {t['bound_ms']:.4f} ms, {both_bytes / 1e6:.1f} MB, "
+        f"{100 * t['bound_ms'] / t['ms']:.1f}% of it); launches {counted[0]} + {counted[1]}; share of the limit "
+        f"{', '.join(f'{k} {v:.3g}' for k, v in excess.items())}")
+    bad = {k: v for k, v in excess.items() if not v <= 1}
+    if bad or counted != (1, 1):
+        fail(f"[se] the gate kernels differ from the plain version beyond the limit ({bad}) or were counted "
+             f"{counted} times, not once each way")
+    return t
+
+
+def se_selfplay(dev, compared: set) -> dict:
+    """[se]'s main path: a fresh ``SE_NET`` through ``make_net_evaluator`` +
+    ``make_refill_play_fn`` (``SE_SELFPLAY``, noise and sampling on), the
+    counters set to 0 just before it. Every game must finish and replay
+    legally, each tower forward must run ``SE_NET``'s gates
+    (``run_tower.se_blocks``), no gate kernel of the learner may run
+    (``se_gate.launches``), and every batch launched must be in
+    ``compared``."""
+    import torch
+
+    from connect4_tpu_torch.config import MCTSConfig, SENetConfig
+    from connect4_tpu_torch.eval.evaluators import make_net_evaluator
+    from connect4_tpu_torch.models import se_gate as G
+    from connect4_tpu_torch.models import tower
+    from connect4_tpu_torch.models.net import init_net
+    from connect4_tpu_torch.training.self_play import make_refill_play_fn
+    from connect4_tpu_torch.utils import make_generator
+
+    sp = SE_SELFPLAY
+    net = init_net(SENetConfig(**SE_NET), torch.Generator().manual_seed(3), dev)
+    cfg = MCTSConfig(simulations=sp["simulations"], root_dirichlet_alpha=0.3, root_exploration_fraction=0.25,
+                     num_sampling_moves=6, parallel_sims=sp["parallel_sims"])
+    play = make_refill_play_fn(make_net_evaluator(net), cfg, sp["slots"], sp["games"], device=dev)
+    torch.cuda.synchronize()
+    tower.run_tower.launches = tower.run_tower.se_blocks = 0
+    tower.run_tower.by_shape = {}
+    G.se_gate.launches = G.se_gate.backward_launches = 0
+    t0 = time.perf_counter()
+    out = play(make_generator(sp["seed"], dev))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"tower_launches": tower.run_tower.launches, "se_blocks": tower.run_tower.se_blocks,
+              "se_gate_launches": G.se_gate.launches + G.se_gate.backward_launches}
+    seen = tower.run_tower.by_shape
+    tower.run_tower.by_shape = {}
+    moves = replay_games(out)
+    log(f"[se] self-play with a fresh {SE_NET['n_residuals']}-block SE net: {sp['games']} games in "
+        f"{sp['slots']} slots, {moves} moves in {seconds:.2f} s; tower forwards {counts['tower_launches']}, "
+        f"gates {counts['se_blocks']}, the learner's gate kernels {counts['se_gate_launches']}; launches by "
+        f"width and batch {seen}")
+    if int(out.mask.sum()) != moves or not (out.result.cpu() != 0).all():
+        fail("[se] not every game of the SE self-play finished")
+    if not counts["tower_launches"] or counts["se_blocks"] != SE_NET["n_residuals"] * counts["tower_launches"]:
+        fail(f"[se] self-play ran {counts['se_blocks']} gates in {counts['tower_launches']} tower forwards")
+    if counts["se_gate_launches"]:
+        fail("[se] self-play launched the learner's gate kernels")
+    missing = sorted((f, b) for f, per in seen.items() for b in per if (f, b) not in compared)
+    if missing:
+        fail(f"[se] self-play launched the SE kernel at (F, B) = {missing}, not held at full depth")
+    return {**sp, **counts, "moves": moves, "seconds": seconds, "by_shape": seen}
+
+
+def se_train_step(dev, generator) -> dict:
+    """[se]'s learner: a train step of ``SE_NET`` at batch 4096 (the
+    ``lc0t40-train`` cell's) on the card, after one to warm it, the
+    counters set to 0 just before it: the learner's gate kernels once a
+    block each way (``se_gate.launches``, ``.backward_launches``), the
+    BatchNorm pair 1 + 2 x blocks + 2 times each way, no tower kernel, a
+    finite loss; then its ms by CUDA events."""
+    import torch
+
+    from connect4_tpu_torch.config import ModelConfig, SENetConfig
+    from connect4_tpu_torch.env.core import to_planes
+    from connect4_tpu_torch.models import batch_norm as B
+    from connect4_tpu_torch.models import se_gate as G
+    from connect4_tpu_torch.models import tower
+    from connect4_tpu_torch.training.learner import init_train_state, make_train_step
+
+    n = 4096
+    planes = to_planes(random_positions(n, generator, dev), dtype=torch.uint8)
+    values = torch.randint(0, 3, (n,), generator=generator, device=dev).float() / 2
+    priors = torch.softmax(2 * torch.randn((n, 7), generator=generator, device=dev), -1)
+    state = init_train_state(ModelConfig(net_config=SENetConfig(**SE_NET)), torch.Generator().manual_seed(4), dev)
+    step = make_train_step(state.net, state.optimizer)
+    step(planes, values, priors)
+    torch.cuda.synchronize()
+    G.se_gate.launches = G.se_gate.backward_launches = 0
+    B.batch_norm_act.launches = B.batch_norm_act.backward_launches = 0
+    tower.run_tower.se_blocks = 0
+    loss = float(step(planes, values, priors)["loss"])
+    counts = {"se_gate_launches": G.se_gate.launches, "se_gate_backward_launches": G.se_gate.backward_launches,
+              "batch_norm_launches": B.batch_norm_act.launches,
+              "batch_norm_backward_launches": B.batch_norm_act.backward_launches,
+              "se_blocks": tower.run_tower.se_blocks}
+    ms = timed_ms(lambda: step(planes, values, priors), iters=10, warmup=1)
+    blocks = SE_NET["n_residuals"]
+    log(f"[se] train step of the {blocks}-block SE net at batch {n}: loss {loss:.5f}, {ms:.3f} ms; counted "
+        f"{counts}")
+    want = {"se_gate_launches": blocks, "se_gate_backward_launches": blocks,
+            "batch_norm_launches": 1 + 2 * blocks + 2, "batch_norm_backward_launches": 1 + 2 * blocks + 2,
+            "se_blocks": 0}
+    if counts != want or not loss == loss or abs(loss) == float("inf"):
+        fail(f"[se] the SE train step counted {counts}, not {want}, or its loss {loss} is not finite")
+    return {**counts, "batch": n, "loss": loss, "ms": ms}
+
+
+def se_phase(dev, generator):
+    """[se]: Leela Chess Zero's squeeze-and-excitation body on the card.
+    The wide kernel's SE instantiation (``tower_kernel_wide<256, ReLU,
+    SE>``) must equal ``tower_plain(tensor_core=True)`` in every element,
+    and run a gate a block (``run_tower.se_blocks``), on a fresh two-block
+    net of ``SE_NET``'s width at ``SE_COMPARE_BOARDS`` and on a fresh net at
+    ``SE_NET``'s full depth at ``SE_DEPTH_BOARDS``. Then at full depth, at
+    ``WIDE_TIME_BOARDS``: the kernel, the ResNet's instantiation at the
+    same width and depth, the plain version rounded to nearest, the cuDNN
+    tower with the gate in PyTorch ops, each beside the bound. Then the
+    learner's gate kernels (``se_gate_check``), the BatchNorm pair at
+    ``SE_BN_SHAPES`` (``bn_shape``), SE self-play on the main path
+    (``se_selfplay``) and an SE train step (``se_train_step``)."""
+    import torch
+
+    from connect4_tpu_torch.config import NetConfig, SENetConfig
+    from connect4_tpu_torch.models import tower
+    from connect4_tpu_torch.models.net import fold_bn_params, init_net
+
+    out = {"compare": {}, "times": {}}
+    compared = set()
+    with torch.no_grad():
+        for blocks, boards in ((2, SE_COMPARE_BOARDS), (SE_NET["n_residuals"], SE_DEPTH_BOARDS)):
+            config = SENetConfig(**{**SE_NET, "n_residuals": blocks})
+            packed = tower.pack_weights(config, fold_bn_params(init_net(config, torch.Generator().manual_seed(256),
+                                                                        dev)))
+            for b in boards:
+                x2d = board_rows(b, generator, dev)
+                before = tower.run_tower.se_blocks
+                tk = tower.run_tower(packed, x2d)
+                gates = tower.run_tower.se_blocks - before
+                t0 = time.perf_counter()
+                differ = int((tk != tower.tower_plain(packed, x2d, tensor_core=True)).sum())
+                out["compare"][f"{blocks}x{b}"] = {"blocks": blocks, "boards": b, "differ": differ, "se_blocks": gates}
+                log(f"[se] compare B={b}, {blocks} blocks: {differ} elements differ from the emulation, {gates} "
+                    f"gates (the emulation {time.perf_counter() - t0:.1f} s)")
+                if differ or gates != blocks:
+                    fail(f"[se] the SE kernel differs from its emulation at B={b}, {blocks} blocks ({differ} "
+                         f"elements, {gates} gates)")
+                if blocks == SE_NET["n_residuals"]:
+                    compared.add((SE_NET["filters"], b))
+    config = SENetConfig(**SE_NET)
+    resnet = NetConfig(**{k: v for k, v in SE_NET.items() if k != "se_ratio"})
+    folded = fold_bn_params(init_net(config, torch.Generator().manual_seed(1), dev))
+    packed = tower.pack_weights(config, folded)
+    packed_r = tower.pack_weights(resnet, fold_bn_params(init_net(resnet, torch.Generator().manual_seed(1), dev)))
+    lib = cudnn_se_tower(folded, config)
+    with torch.no_grad():
+        for b in WIDE_TIME_BOARDS:
+            x2d = board_rows(b, generator, dev)
+            bound_ms, bound_by, flops, nbytes = tower.tower_bound(config, b)
+            t = out["times"][b] = {
+                "ms": timed_ms(lambda: tower.run_tower(packed, x2d)),
+                "resnet_ms": timed_ms(lambda: tower.run_tower(packed_r, x2d)),
+                "plain_ms": timed_ms(lambda: tower.tower_plain(packed, x2d), iters=1, warmup=1),
+                "library_ms": timed_ms(lambda: lib(x2d.reshape(b, 6, 7, 3))),
+                "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+            }
+            t["ms_again"] = timed_ms(lambda: tower.run_tower(packed, x2d))
+            log(f"[se] time F=256, {config.n_residuals} SE blocks, B={b}: kernel {t['ms']:.4f} ms (again "
+                f"{t['ms_again']:.4f}), the ResNet's {t['resnet_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                f"cuDNN and the gate in PyTorch {t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                f"({flops / 1e9:.1f} GFLOP), {100 * bound_ms / t['ms']:.1f}% of the bound")
+    out["gate"] = se_gate_check(dev)
+    g = torch.Generator(device=dev).manual_seed(14)
+    out["batch_norm"] = dict(bn_shape(dev, g, c, skip, stream, act, "[se] batch_norm")
+                             for c, skip, stream, act in SE_BN_SHAPES)
+    out["selfplay"] = se_selfplay(dev, compared)
+    out["train"] = se_train_step(dev, generator)
+    return out
+
+
 def replay_games(out) -> int:
     """Replay every recorded game on the host board: legal moves, the
     recorded pre-move planes (where ``out`` has them), the recorded result.
@@ -793,6 +1093,138 @@ def bn_host_us(dev, iters: int = 300, rounds: int = 3) -> dict:
     return {k: statistics.median(v) for k, v in times.items()} | {"rounds_us": times, "boards": BN_HOST_BOARDS}
 
 
+def bn_shape(dev, g, c: int, skip: bool, stream: bool, act: str = "leaky", tag: str = "[batch_norm]"):
+    """One shape of [batch_norm] (``batch_norm_phase``): ``batch_norm_act``
+    at ``act`` on ``BN_ROWS`` bf16 rows of ``c`` channels, with a skip and
+    the float32 stream as asked, drawn from ``g``: held against its plain
+    version within ``TOL_BN`` and timed. Returns ``(name, numbers)``."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    from connect4_tpu_torch.models import batch_norm as B
+
+    shape = (BN_ROWS // 42, c, 6, 7)
+    matrix = c < 8  # a head's [N*H*W, C] rows, from its row product
+
+    def draw(offset=0.0, dtype=torch.float32):
+        t = torch.randn(shape, generator=g, device=dev) + offset
+        t = t.to(dtype).contiguous(memory_format=torch.channels_last)
+        return t.permute(0, 2, 3, 1).reshape(-1, c) if matrix else t
+
+    means = torch.randn((c,) if matrix else (c, 1, 1), generator=g, device=dev)
+    x = (draw() * 2 + means).to(torch.bfloat16)
+    x = x if matrix else x.contiguous(memory_format=torch.channels_last)
+    s = draw() if skip else None
+    g_c, g_f = draw(0.5, torch.bfloat16), (draw(0.5) if stream else None)
+    bn = nn.BatchNorm2d(c).to(dev).train()
+    with torch.no_grad():
+        bn.weight.copy_(1 + 0.3 * torch.randn((c,), generator=g, device=dev))
+        bn.bias.copy_(0.2 * torch.randn((c,), generator=g, device=dev))
+    bn0 = copy.deepcopy(bn)
+    xr = x.detach().requires_grad_(True)
+    sr = None if s is None else s.detach().requires_grad_(True)
+    inputs = [xr, bn.weight, bn.bias] + ([sr] if skip else [])
+    grads_out = [g_c] + ([g_f] if stream else [])
+
+    def op_fwd():
+        return B.batch_norm_act(x, bn, s, stream, act)
+
+    def op_both(saved=None):
+        y_c, y_f = B.batch_norm_act(xr, bn, sr, stream, act)
+        if saved is not None:  # (x, skip, stats): the kernels' mean, 1/sd, scale and shift
+            saved.append(y_c.grad_fn.saved_tensors[2].clone())
+        return y_c, y_f, torch.autograd.grad([y_c] + ([y_f] if stream else []), inputs, grads_out)
+
+    def plain_both(stats=None):
+        y_c, y_f, st = B._forward_plain(x, bn0.weight.detach(), bn0.bias.detach(), bn0.running_mean,
+                                        bn0.running_var, s, stream, act)
+        return y_c, y_f, st, B._backward_plain(x, s, st if stats is None else stats, g_c, g_f, act)
+
+    saved = []
+    ky, kf, kgrads = op_both(saved)
+    k_stats = saved[0]
+    k_running = (bn.running_mean.clone(), bn.running_var.clone())
+    py, pf, p_stats, pgrads = plain_both(k_stats)
+    torch.cuda.synchronize()
+    pairs = [("y", ky, py), ("dx", kgrads[0], pgrads[0]), ("dgamma", kgrads[1], pgrads[1]),
+             ("dbeta", kgrads[2], pgrads[2])]
+    if stream:
+        pairs.append(("y_stream", kf, pf))
+    if skip:
+        pairs.append(("dskip", kgrads[3], pgrads[3]))
+    errs = {n: ((a.float() - r.float()).abs().max() / r.float().abs().max()).item() for n, a, r in pairs}
+    excess = {n: bn_excess(a, r) for n, a, r in pairs}
+    errs["stats"] = (k_stats - p_stats).abs().max().item()
+    errs["running"] = max((k_running[0] - bn0.running_mean).abs().max().item(),
+                          (k_running[1] - bn0.running_var).abs().max().item())
+    for k in ("stats", "running"):
+        excess[k] = errs[k] / TOL_BN["stats"]
+    bad = {k: v for k, v in excess.items() if not v <= 1}
+
+    x4 = x.reshape(BN_ROWS // 42, 6, 7, c).permute(0, 3, 1, 2) if matrix else x
+    xn = x4.float().contiguous()  # the parent's path: the float32 NCHW cast
+    sn = None if s is None else (s.reshape(xn.shape[0], 6, 7, c).permute(0, 3, 1, 2) if matrix else s).contiguous()
+    gn = (g_c.reshape(xn.shape[0], 6, 7, c).permute(0, 3, 1, 2) if matrix else g_c).float().contiguous()
+    w, b = bn.weight.detach(), bn.bias.detach()
+
+    def library_fwd():
+        y = F.batch_norm(xn, None, None, w, b, training=True, eps=B.EPS)
+        return B._activate(y if sn is None else y + sn, act)
+
+    def library_both():
+        xl = xn.detach().requires_grad_(True)
+        wl, bl = w.detach().requires_grad_(True), b.detach().requires_grad_(True)
+        y = F.batch_norm(xl, None, None, wl, bl, training=True, eps=B.EPS)
+        torch.autograd.grad(B._activate(y if sn is None else y + sn, act), [xl, wl, bl], gn)
+
+    def kernels_fwd():
+        return B._forward_cuda(x, w, b, bn.running_mean, bn.running_var, s, stream, act)
+
+    def kernels_both():
+        _, _, st = kernels_fwd()
+        return B._backward_cuda(x, s, st, g_c, g_f, act)
+
+    e = 2  # bf16 bytes
+    # x; y; skip; stream. Back: x, g_c, dx; g_f; skip, dskip
+    fwd_bytes = BN_ROWS * c * (2 * e + 4 * skip + 4 * stream)
+    both_bytes = fwd_bytes + BN_ROWS * c * (3 * e + 4 * stream + 8 * skip)
+    # the kernels' time through their bindings, whose host work is a
+    # fraction of it; the op under autograd, whose host work can set
+    # the pace at these sizes
+    with torch.no_grad():
+        t = {"fwd_ms": timed_ms(kernels_fwd), "ms": timed_ms(kernels_both),
+             "op_fwd_ms": timed_ms(op_fwd),
+             "plain_fwd_ms": timed_ms(lambda: B._forward_plain(x, w, b, bn0.running_mean, bn0.running_var, s,
+                                                               stream, act)),
+             "plain_ms": timed_ms(plain_both),
+             "library_fwd_ms": timed_ms(library_fwd)}
+    t["op_ms"] = timed_ms(op_both)
+    t["library_ms"] = timed_ms(library_both)
+    with torch.no_grad():
+        t["ms_again"] = timed_ms(kernels_both)
+    t.update(bound_fwd_ms=fwd_bytes / HBM_BYTES_PER_S * 1e3, bound_ms=both_bytes / HBM_BYTES_PER_S * 1e3,
+             bound_by="bytes", bytes=both_bytes, rows=BN_ROWS, channels=c, skip=skip, stream=stream,
+             errors=errs, excess=excess)
+    name = f"C={c}{' skip' if skip else ''}{' stream' if stream else ''}{'' if act == 'leaky' else ' ' + act}"
+    log(f"{tag} {name}, {BN_ROWS} bf16 rows{' ([R, C] matrix)' if matrix else ''}: forward "
+        f"{t['fwd_ms']:.4f} ms (bound {t['bound_fwd_ms']:.4f}), forward and backward {t['ms']:.4f} ms (again "
+        f"{t['ms_again']:.4f}; bound {t['bound_ms']:.4f} ms, {both_bytes / 1e6:.1f} MB, "
+        f"{100 * t['bound_ms'] / t['ms']:.1f}% of it); the op under autograd {t['op_fwd_ms']:.4f} / "
+        f"{t['op_ms']:.4f} ms; plain {t['plain_fwd_ms']:.4f} / {t['plain_ms']:.4f} ms; "
+        f"cuDNN NCHW BatchNorm + where {t['library_fwd_ms']:.4f} / {t['library_ms']:.4f} ms; largest "
+        f"differences from the plain version {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}; "
+        f"largest share of the limit {max(excess.values()):.3g}")
+    if bad:
+        fail(f"{tag} {name}: the op differs from the plain version beyond TOL_BN (share of the "
+             f"limit): {bad}")
+    if (kf is not None) != stream:
+        fail(f"{tag} {name}: the float32 stream is {'missing' if stream else 'there unasked'}")
+    return name, t
+
+
 def batch_norm_phase(dev):
     """[batch_norm]: ``batch_norm_act``, the fused BatchNorm + LeakyReLU
     (+ skip) kernel pair (``models/csrc/batch_norm.cu``) under autograd, at
@@ -805,136 +1237,10 @@ def batch_norm_phase(dev):
     beside the bound by bytes (each byte the op needs read or written
     once): the kernels through their bindings and the op under autograd;
     then the host's cost a call (``bn_host_us``)."""
-    import copy
-
     import torch
-    import torch.nn.functional as F
-    from torch import nn
-
-    from connect4_tpu_torch.models import batch_norm as B
 
     g = torch.Generator(device=dev).manual_seed(11)
-    out = {}
-    for c, skip, stream in BN_SHAPES:
-        shape = (BN_ROWS // 42, c, 6, 7)
-        matrix = c < 8  # a head's [N*H*W, C] rows, from its row product
-
-        def draw(offset=0.0, dtype=torch.float32):
-            t = torch.randn(shape, generator=g, device=dev) + offset
-            t = t.to(dtype).contiguous(memory_format=torch.channels_last)
-            return t.permute(0, 2, 3, 1).reshape(-1, c) if matrix else t
-
-        means = torch.randn((c,) if matrix else (c, 1, 1), generator=g, device=dev)
-        x = (draw() * 2 + means).to(torch.bfloat16)
-        x = x if matrix else x.contiguous(memory_format=torch.channels_last)
-        s = draw() if skip else None
-        g_c, g_f = draw(0.5, torch.bfloat16), (draw(0.5) if stream else None)
-        bn = nn.BatchNorm2d(c).to(dev).train()
-        with torch.no_grad():
-            bn.weight.copy_(1 + 0.3 * torch.randn((c,), generator=g, device=dev))
-            bn.bias.copy_(0.2 * torch.randn((c,), generator=g, device=dev))
-        bn0 = copy.deepcopy(bn)
-        xr = x.detach().requires_grad_(True)
-        sr = None if s is None else s.detach().requires_grad_(True)
-        inputs = [xr, bn.weight, bn.bias] + ([sr] if skip else [])
-        grads_out = [g_c] + ([g_f] if stream else [])
-
-        def op_fwd():
-            return B.batch_norm_act(x, bn, s, stream)
-
-        def op_both(saved=None):
-            y_c, y_f = B.batch_norm_act(xr, bn, sr, stream)
-            if saved is not None:  # (x, skip, stats): the kernels' mean, 1/sd, scale and shift
-                saved.append(y_c.grad_fn.saved_tensors[2].clone())
-            return y_c, y_f, torch.autograd.grad([y_c] + ([y_f] if stream else []), inputs, grads_out)
-
-        def plain_both(stats=None):
-            y_c, y_f, st = B._forward_plain(x, bn0.weight.detach(), bn0.bias.detach(), bn0.running_mean,
-                                            bn0.running_var, s, stream)
-            return y_c, y_f, st, B._backward_plain(x, s, st if stats is None else stats, g_c, g_f)
-
-        saved = []
-        ky, kf, kgrads = op_both(saved)
-        k_stats = saved[0]
-        k_running = (bn.running_mean.clone(), bn.running_var.clone())
-        py, pf, p_stats, pgrads = plain_both(k_stats)
-        torch.cuda.synchronize()
-        pairs = [("y", ky, py), ("dx", kgrads[0], pgrads[0]), ("dgamma", kgrads[1], pgrads[1]),
-                 ("dbeta", kgrads[2], pgrads[2])]
-        if stream:
-            pairs.append(("y_stream", kf, pf))
-        if skip:
-            pairs.append(("dskip", kgrads[3], pgrads[3]))
-        errs = {n: ((a.float() - r.float()).abs().max() / r.float().abs().max()).item() for n, a, r in pairs}
-        excess = {n: bn_excess(a, r) for n, a, r in pairs}
-        errs["stats"] = (k_stats - p_stats).abs().max().item()
-        errs["running"] = max((k_running[0] - bn0.running_mean).abs().max().item(),
-                              (k_running[1] - bn0.running_var).abs().max().item())
-        for k in ("stats", "running"):
-            excess[k] = errs[k] / TOL_BN["stats"]
-        bad = {k: v for k, v in excess.items() if not v <= 1}
-
-        x4 = x.reshape(BN_ROWS // 42, 6, 7, c).permute(0, 3, 1, 2) if matrix else x
-        xn = x4.float().contiguous()  # the parent's path: the float32 NCHW cast
-        sn = None if s is None else (s.reshape(xn.shape[0], 6, 7, c).permute(0, 3, 1, 2) if matrix else s).contiguous()
-        gn = (g_c.reshape(xn.shape[0], 6, 7, c).permute(0, 3, 1, 2) if matrix else g_c).float().contiguous()
-        w, b = bn.weight.detach(), bn.bias.detach()
-
-        def library_fwd():
-            y = F.batch_norm(xn, None, None, w, b, training=True, eps=B.EPS)
-            y = y if sn is None else y + sn
-            return torch.where(y >= 0, y, y * B.SLOPE)
-
-        def library_both():
-            xl = xn.detach().requires_grad_(True)
-            wl, bl = w.detach().requires_grad_(True), b.detach().requires_grad_(True)
-            y = F.batch_norm(xl, None, None, wl, bl, training=True, eps=B.EPS)
-            y = y if sn is None else y + sn
-            torch.autograd.grad(torch.where(y >= 0, y, y * B.SLOPE), [xl, wl, bl], gn)
-
-        def kernels_fwd():
-            return B._forward_cuda(x, w, b, bn.running_mean, bn.running_var, s, stream)
-
-        def kernels_both():
-            _, _, st = kernels_fwd()
-            return B._backward_cuda(x, s, st, g_c, g_f)
-
-        e = 2  # bf16 bytes
-        # x; y; skip; stream. Back: x, g_c, dx; g_f; skip, dskip
-        fwd_bytes = BN_ROWS * c * (2 * e + 4 * skip + 4 * stream)
-        both_bytes = fwd_bytes + BN_ROWS * c * (3 * e + 4 * stream + 8 * skip)
-        # the kernels' time through their bindings, whose host work is a
-        # fraction of it; the op under autograd, whose host work can set
-        # the pace at these sizes
-        with torch.no_grad():
-            t = {"fwd_ms": timed_ms(kernels_fwd), "ms": timed_ms(kernels_both),
-                 "op_fwd_ms": timed_ms(op_fwd),
-                 "plain_fwd_ms": timed_ms(lambda: B._forward_plain(x, w, b, bn0.running_mean, bn0.running_var, s,
-                                                                   stream)),
-                 "plain_ms": timed_ms(plain_both),
-                 "library_fwd_ms": timed_ms(library_fwd)}
-        t["op_ms"] = timed_ms(op_both)
-        t["library_ms"] = timed_ms(library_both)
-        with torch.no_grad():
-            t["ms_again"] = timed_ms(kernels_both)
-        t.update(bound_fwd_ms=fwd_bytes / HBM_BYTES_PER_S * 1e3, bound_ms=both_bytes / HBM_BYTES_PER_S * 1e3,
-                 bound_by="bytes", bytes=both_bytes, rows=BN_ROWS, channels=c, skip=skip, stream=stream,
-                 errors=errs, excess=excess)
-        name = f"C={c}{' skip' if skip else ''}{' stream' if stream else ''}"
-        out[name] = t
-        log(f"[batch_norm] {name}, {BN_ROWS} bf16 rows{' ([R, C] matrix)' if matrix else ''}: forward "
-            f"{t['fwd_ms']:.4f} ms (bound {t['bound_fwd_ms']:.4f}), forward and backward {t['ms']:.4f} ms (again "
-            f"{t['ms_again']:.4f}; bound {t['bound_ms']:.4f} ms, {both_bytes / 1e6:.1f} MB, "
-            f"{100 * t['bound_ms'] / t['ms']:.1f}% of it); the op under autograd {t['op_fwd_ms']:.4f} / "
-            f"{t['op_ms']:.4f} ms; plain {t['plain_fwd_ms']:.4f} / {t['plain_ms']:.4f} ms; "
-            f"cuDNN NCHW BatchNorm + where {t['library_fwd_ms']:.4f} / {t['library_ms']:.4f} ms; largest "
-            f"differences from the plain version {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}; "
-            f"largest share of the limit {max(excess.values()):.3g}")
-        if bad:
-            fail(f"[batch_norm] {name}: the op differs from the plain version beyond TOL_BN (share of the "
-                 f"limit): {bad}")
-        if (kf is not None) != stream:
-            fail(f"[batch_norm] {name}: the float32 stream is {'missing' if stream else 'there unasked'}")
+    out = dict(bn_shape(dev, g, c, skip, stream) for c, skip, stream in BN_SHAPES)
     host = bn_host_us(dev)
     log(f"[batch_norm] host a forward and backward at {host['boards']} boards x 64 channels, a skip and the "
         f"stream: batch_norm_act {host['checked']:.1f} us, batch_norm_act_unchecked {host['unchecked']:.1f} us, "
@@ -2822,6 +3128,7 @@ def main() -> int:
                 f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
     report["times"] = times
     report["times_widths"] = time_widths(dev, gen)
+    report["se"] = se_phase(dev, gen)
 
     # --- 4. search and self-play on the card against the CPU -----------------
     cpu = torch.device("cpu")
@@ -3183,6 +3490,69 @@ def main() -> int:
                      for k, t in bn_shapes.items()},
         # host microseconds a forward and backward against the ops before it
         "host_us": {k: report["batch_norm"]["host_us"][k] for k in ("checked", "unchecked", "ops")},
+    })
+    # the wide kernel's squeeze-and-excitation instantiation: the gates
+    # [se]'s self-play ran on the main path (set to 0 just before it), and
+    # [se]'s numbers at SE_NET's depth and B=4096, a self-play iteration's
+    # batch
+    t_se = report["se"]["times"][4096]
+    se_play = report["se"]["selfplay"]
+    kernels.append({
+        "name": "tower_wide_se",
+        "route": "cuda",
+        "source": "connect4_tpu_torch/models/csrc/tower.cu",
+        "replaces": None,  # the JAX package has no squeeze-and-excitation net
+        "launches": se_play["tower_launches"],
+        "se_gates": se_play["se_blocks"],
+        "filters": SE_NET["filters"],
+        "n_residuals": SE_NET["n_residuals"],
+        "boards": 4096,
+        "differ": sum(c["differ"] for c in report["se"]["compare"].values()),
+        "ms": t_se["ms"],
+        "resnet_ms": t_se["resnet_ms"],
+        "plain_ms": t_se["plain_ms"],
+        "bound_ms": t_se["bound_ms"],
+        "bound_by": t_se["bound_by"],
+        "library_ms": t_se["library_ms"],
+        "by_boards": {b: {k: t[k] for k in ("ms", "resnet_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                      for b, t in report["se"]["times"].items()},
+    })
+    # the learner's gate kernels: their launches in [se]'s train step (set
+    # to 0 just before it) and [se]'s numbers at 4096 boards of F=256
+    t_gate, se_train = report["se"]["gate"], report["se"]["train"]
+    kernels.append({
+        "name": "se_gate",
+        "route": "cuda",
+        "source": "connect4_tpu_torch/models/csrc/se_gate.cu",
+        "replaces": None,  # the JAX package has no squeeze-and-excitation net
+        "launches": se_train["se_gate_launches"],
+        "backward_launches": se_train["se_gate_backward_launches"],
+        "boards": t_gate["boards"],
+        "channels": t_gate["channels"],
+        "max_share_of_limit": max(t_gate["excess"].values()),
+        "ms": t_gate["ms"],
+        "fwd_ms": t_gate["fwd_ms"],
+        "plain_fwd_ms": t_gate["plain_fwd_ms"],
+        "bound_ms": t_gate["bound_ms"],
+        "bound_fwd_ms": t_gate["bound_fwd_ms"],
+        "bound_by": t_gate["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the gate
+    })
+    # the BatchNorm pair at the SE body's activations (ReLU, none): its
+    # launches in [se]'s train step and [se]'s numbers at each shape
+    se_bn = report["se"]["batch_norm"]
+    kernels.append({
+        "name": "batch_norm_act_se",
+        "route": "cuda",
+        "source": "connect4_tpu_torch/models/csrc/batch_norm.cu",
+        "replaces": None,
+        "launches": se_train["batch_norm_launches"],
+        "backward_launches": se_train["batch_norm_backward_launches"],
+        "max_rel_err": max(max(t["errors"].values()) for t in se_bn.values()),
+        "max_share_of_limit": max(max(t["excess"].values()) for t in se_bn.values()),
+        "by_shape": {k: {f: t[f] for f in ("ms", "fwd_ms", "op_ms", "op_fwd_ms", "plain_ms", "plain_fwd_ms",
+                                           "bound_ms", "bound_fwd_ms", "library_ms", "library_fwd_ms")}
+                     for k, t in se_bn.items()},
     })
     smi = card()
     report["nvidia_smi"] = smi

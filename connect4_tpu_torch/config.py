@@ -28,6 +28,28 @@ class NetConfig:
 
 
 @dataclasses.dataclass
+class SENetConfig(NetConfig):
+    """Leela Chess Zero's squeeze-and-excitation residual body (lczero-training
+    ``tf/tfprocess.py``: ``residual_block``, ``squeeze_excitation``) under the
+    same heads: ReLU in the body, and after each block's second BatchNorm a
+    gate from the board's mean over its 42 cells through two Dense layers,
+    ``filters // se_ratio`` wide and then ``2 * filters`` (the sigmoid's
+    gammas, then the shifts). The port has no JAX counterpart of it."""
+
+    se_ratio: int = 8
+
+    def __post_init__(self):
+        if self.se_ratio < 1 or self.filters % self.se_ratio:
+            raise ValueError(f"SENetConfig: se_ratio {self.se_ratio} must divide filters {self.filters}")
+
+
+def net_config_from_dict(fields: dict) -> NetConfig:
+    """The ``NetConfig`` (or ``SENetConfig``, which carries ``se_ratio``) of
+    ``dataclasses.asdict``'s fields, as a checkpoint stores them."""
+    return SENetConfig(**fields) if "se_ratio" in fields else NetConfig(**fields)
+
+
+@dataclasses.dataclass
 class ModelConfig:
     """Optimiser + training schedule
     (``oinkoink/neural/config.py:19-39``). ``milestones`` are in

@@ -10,6 +10,15 @@ replayed, so inside ``captured()`` the call is logged instead, and
 every kernel's launches of a graph, the marks and counter updates below
 among them.
 
+The kernels' wrappers keep their counts as attributes of the wrapper:
+``models.tower.run_tower`` (``launches``, ``layer_launches``, ``by_shape``
+and ``se_blocks``, the squeeze-and-excitation gates the tower kernel ran),
+``models.batch_norm.batch_norm_act`` (``launches``, ``backward_launches``),
+``models.se_gate.se_gate`` (``launches``, ``backward_launches``: the
+learner's gate kernels)
+and ``mcts.batched.descend`` (``launches``). The gate runs inside
+``learner.forward`` and has no span of its own: a span would overlap it.
+
 Spans. ``SPANS`` names every span of the program. ``span(name, device)``
 holds a block in a profiler range of that name on the host
 (``record_function``: a few microseconds without a profiler). While tracing

@@ -1,9 +1,12 @@
-"""The learner's train-mode BatchNorm fused with its LeakyReLU and skip add:
+"""The learner's train-mode BatchNorm fused with its activation and skip add:
 one hand-written CUDA kernel pair a direction (``csrc/batch_norm.cu``),
 its build, its ctypes binding, its autograd and its plain version.
 
-``batch_norm_act(x, bn, skip, stream)`` is ``lrelu(BatchNorm(x) + skip)``
-in training mode over an NHWC activation: ``x`` the conv output, a
+``batch_norm_act(x, bn, skip, stream, act)`` is ``act(BatchNorm(x) +
+skip)`` in training mode over an NHWC activation, ``act`` one of ``ACTS``:
+LeakyReLU (the default, the oinkoink ResNet's), ReLU, or none (the
+squeeze-and-excitation body's; ``net.SENetConfig``). The kernels take it as
+a template parameter, so each activation is code of its own: ``x`` the conv output, a
 ``channels_last`` ``[N, C, H, W]`` tensor or a ``[R, C]`` matrix (bf16, or
 float32 for a float32 net); ``skip`` the float32 residual stream or None.
 It normalises with the batch's mean and biased variance, moves ``bn``'s
@@ -42,6 +45,10 @@ SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "batch
 EPS = 1e-5  # net.BN_EPS
 MOMENTUM = 0.9  # net.BN_MOMENTUM: the weight of the old running value
 SLOPE = 0.01  # net.LEAKY_SLOPE
+# the activations after the BatchNorm (the kernels' kAct* values, in order)
+# and the slope each takes below 0
+ACTS = ("leaky", "relu", "none")
+SLOPES = {"leaky": SLOPE, "relu": 0.0, "none": 1.0}
 BLOCKS_PER_SM = 2  # a reduction's grid: at most this many blocks an SM
 MAX_TILES = 64  # tickets a stream holds: one a tile of 512 channel packs (kThreads)
 MAX_CHANNELS = MAX_TILES * 512  # so at most MAX_TILES tiles, whatever the pack
@@ -56,9 +63,9 @@ def _library() -> ctypes.CDLL:
         lib = load_library(SOURCE)
         lib.c4_batch_norm_act_fwd.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10
                                               + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-                                              + [ctypes.c_void_p])
+                                              + [ctypes.c_int, ctypes.c_void_p])
         lib.c4_batch_norm_act_bwd.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11
-                                              + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                                              + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         for fn in (lib.c4_batch_norm_act_fwd, lib.c4_batch_norm_act_bwd):
             fn.restype = ctypes.c_int
         _LIB.append(lib)
@@ -92,7 +99,11 @@ def _is_nhwc(t: torch.Tensor) -> bool:
 # the plain version
 
 
-def _forward_plain(x, weight, bias, running_mean, running_var, skip, stream):
+def _activate(pre: torch.Tensor, act: str) -> torch.Tensor:
+    return pre if act == "none" else torch.where(pre >= 0, pre, pre * SLOPES[act])
+
+
+def _forward_plain(x, weight, bias, running_mean, running_var, skip, stream, act="leaky"):
     """The kernels' forward in PyTorch ops: ``(y, y_stream, stats)``,
     ``stats`` the float32 ``[4, C]`` mean, inverse deviation, scale and
     shift the backward reads."""
@@ -105,7 +116,7 @@ def _forward_plain(x, weight, bias, running_mean, running_var, skip, stream):
     pre = torch.addcmul(shift, xf, scale)
     if skip is not None:
         pre = pre + _rows(skip)
-    y = torch.where(pre >= 0, pre, pre * SLOPE)
+    y = _activate(pre, act)
     with torch.no_grad():
         running_mean.mul_(MOMENTUM).add_(mean, alpha=1.0 - MOMENTUM)
         running_var.mul_(MOMENTUM).add_(var, alpha=1.0 - MOMENTUM)
@@ -113,7 +124,7 @@ def _forward_plain(x, weight, bias, running_mean, running_var, skip, stream):
     return _unrows(y.to(x.dtype), x), (_unrows(y, x) if stream else None), stats
 
 
-def _backward_plain(x, skip, stats, g_c, g_f):
+def _backward_plain(x, skip, stats, g_c, g_f, act="leaky"):
     """The kernels' backward in PyTorch ops: ``(dx, dgamma, dbeta, dskip)``."""
     mean, invstd, scale, shift = stats
     xf = _rows(x).float()
@@ -125,7 +136,7 @@ def _backward_plain(x, skip, stats, g_c, g_f):
         g = g + _rows(g_f)
     if g_c is not None:
         g = g + _rows(g_c).float()
-    dpre = torch.where(pre >= 0, g, g * SLOPE)
+    dpre = g if act == "none" else torch.where(pre >= 0, g, g * SLOPES[act])
     xhat = (xf - mean) * invstd
     dbeta, dgamma = dpre.sum(0), (dpre * xhat).sum(0)
     rows = xf.shape[0]
@@ -190,7 +201,7 @@ def _check(x, skip, weight, bias, running_mean, running_var) -> None:
         raise ValueError(f"batch_norm_act: skip must be float32 of x's shape {tuple(x.shape)} and layout")
 
 
-def _forward_cuda(x, weight, bias, running_mean, running_var, skip, stream):
+def _forward_cuda(x, weight, bias, running_mean, running_var, skip, stream, act="leaky"):
     rows, c = x.numel() // x.shape[1], x.shape[1]
     bf16 = int(x.dtype == torch.bfloat16)
     y = torch.empty_like(x)
@@ -201,14 +212,14 @@ def _forward_cuda(x, weight, bias, running_mean, running_var, skip, stream):
                 x.data_ptr(), bf16, _pointer(skip), y.data_ptr(), _pointer(y_stream), weight.data_ptr(),
                 bias.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(), stats.data_ptr(),
                 work.data_ptr(), tickets.data_ptr(), rows, c, _aligned(x, skip, y, y_stream, stats), blocks,
-                MOMENTUM, EPS, cuda_stream)
+                MOMENTUM, EPS, ACTS.index(act), cuda_stream)
     if err != 0:
         raise RuntimeError(f"batch_norm_act forward launch failed with cudaError {err} ({rows} rows, {c} channels)")
     launches.count(_record, "launches")
     return y, y_stream, stats
 
 
-def _backward_cuda(x, skip, stats, g_c, g_f):
+def _backward_cuda(x, skip, stats, g_c, g_f, act="leaky"):
     rows, c = x.numel() // x.shape[1], x.shape[1]
     bf16 = int(x.dtype == torch.bfloat16)
     g_c = None if g_c is None else _nhwc(g_c)
@@ -222,7 +233,7 @@ def _backward_cuda(x, skip, stats, g_c, g_f):
                 x.data_ptr(), bf16, _pointer(skip), _pointer(g_c), _pointer(g_f), stats.data_ptr(),
                 _pointer(dpre), dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), coef.data_ptr(),
                 work.data_ptr(), tickets.data_ptr(), rows, c, _aligned(x, skip, g_c, g_f, stats, dpre, dx, coef),
-                blocks, cuda_stream)
+                blocks, ACTS.index(act), cuda_stream)
     if err != 0:
         raise RuntimeError(f"batch_norm_act backward launch failed with cudaError {err} ({rows} rows, {c} channels)")
     launches.count(_record, "backward_launches")
@@ -241,42 +252,45 @@ class _BatchNormAct(torch.autograd.Function):
     """Outputs ``(y, y_stream)`` with ``stream``, else ``y`` alone."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, running_mean, running_var, skip, stream):
+    def forward(ctx, x, weight, bias, running_mean, running_var, skip, stream, act):
         run = _forward_cuda if x.device.type == "cuda" else _forward_plain
-        y, y_stream, stats = run(x, weight, bias, running_mean, running_var, skip, stream)
+        y, y_stream, stats = run(x, weight, bias, running_mean, running_var, skip, stream, act)
         ctx.save_for_backward(x, skip, stats)
         ctx.set_materialize_grads(False)
+        ctx.act = act
         return (y, y_stream) if stream else y
 
     @staticmethod
     def backward(ctx, g_c, g_f=None):
         x, skip, stats = ctx.saved_tensors
         run = _backward_cuda if x.device.type == "cuda" else _backward_plain
-        dx, dgamma, dbeta, dskip = run(x, skip, stats, g_c, g_f)
-        return dx, dgamma, dbeta, None, None, dskip if ctx.needs_input_grad[5] else None, None
+        dx, dgamma, dbeta, dskip = run(x, skip, stats, g_c, g_f, ctx.act)
+        return dx, dgamma, dbeta, None, None, dskip if ctx.needs_input_grad[5] else None, None, None
 
 
 def batch_norm_act(x: torch.Tensor, bn: nn.BatchNorm2d, skip: Optional[torch.Tensor] = None,
-                   stream: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """``lrelu(BatchNorm(x) + skip)`` in training mode: ``(y, y_stream)``
+                   stream: bool = False, act: str = "leaky") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``act(BatchNorm(x) + skip)`` in training mode: ``(y, y_stream)``
     (the module's docstring). The kernels for a CUDA tensor, the plain
     version for a CPU tensor; anything else raises, as do arguments of
-    another type, shape or layout."""
+    another type, shape or layout, and an activation not in ``ACTS``."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"batch_norm_act: no implementation for device {x.device}")
+    if act not in ACTS:
+        raise ValueError(f"batch_norm_act: act must be one of {ACTS}, got {act!r}")
     _check(x, skip, bn.weight, bn.bias, bn.running_mean, bn.running_var)
-    return batch_norm_act_unchecked(x, bn, skip, stream)
+    return batch_norm_act_unchecked(x, bn, skip, stream, act)
 
 
 def batch_norm_act_unchecked(x: torch.Tensor, bn: nn.BatchNorm2d, skip: Optional[torch.Tensor] = None,
-                             stream: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                             stream: bool = False, act: str = "leaky") -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``batch_norm_act`` without the checks of its arguments, for a caller
     that makes them so: the net's train step, whose conv outputs are
     ``channels_last`` (its inputs and weights are) and whose BatchNorms are
     its own. The checks take about 10 us of a forward's 50-70 us of host
     time on an H100's host, and the F=64 train step is paced by the host."""
     two = stream and x.dtype != torch.float32
-    out = _BatchNormAct.apply(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, skip, two)
+    out = _BatchNormAct.apply(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, skip, two, act)
     if two:
         return out
     return out, (out if stream else None)

@@ -22,6 +22,10 @@ Flax trees, and an npz of them that ``load_example_net`` reads (how
 ``connect4_tpu_torch/data/example_net_161.npz`` (written from the JAX
 checkpoint by ``scripts/export_example_net_npz.py``), so the port runs the
 trained net with no JAX or Orbax installed.
+
+The JAX package builds the oinkoink ResNet only: a squeeze-and-excitation
+net (``config.SENetConfig``) has no Flax counterpart, so ``from_flax`` and
+``to_flax`` raise for one.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from connect4_tpu_torch.config import ModelConfig, NetConfig
-from connect4_tpu_torch.models.net import Connect4Net
+from connect4_tpu_torch.models.net import Connect4Net, is_se
 from connect4_tpu_torch.utils import DeviceLike, resolve_device
 
 EXAMPLE_NET = os.path.join(
@@ -72,6 +76,11 @@ def _prefixed(prefix: str, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.
     return {f"{prefix}.{k}": v for k, v in tensors.items()}
 
 
+def _no_se(config: NetConfig) -> None:
+    if is_se(config):
+        raise ValueError(f"the JAX package has no squeeze-and-excitation net: no Flax counterpart of {config}")
+
+
 def from_flax(
     config: NetConfig,
     params: Mapping[str, Any],
@@ -80,6 +89,7 @@ def from_flax(
 ) -> Connect4Net:
     """A ``Connect4Net`` (eval mode) with the weights of the Flax
     ``Connect4Net`` variables ``{'params': params, 'batch_stats': batch_stats}``."""
+    _no_se(config)
     sd: Dict[str, torch.Tensor] = {}
     cb, cbs = params["_ConvBlock_0"], batch_stats["_ConvBlock_0"]
     sd.update(_prefixed("conv_block.conv", _conv(cb["Conv_0"])))
@@ -165,6 +175,7 @@ def to_flax(net: Connect4Net):
     """``(params, batch_stats)``: the net's weights as the Flax trees
     ``from_flax`` takes (nested dicts of float32 numpy arrays), so that
     ``from_flax(net.config, *to_flax(net))`` is the net bit for bit."""
+    _no_se(net.config)
     sd = {k: v.detach().cpu().float().numpy() for k, v in net.state_dict().items()}
 
     def conv(prefix):

@@ -144,6 +144,35 @@
 //   layer's outputs are written) and the rounds (B=4096 is 1366 blocks,
 //   11 rounds on 132 SMs).
 //
+// Squeeze and excitation (Leela Chess Zero's residual body, lczero-training
+// tf/tfprocess.py; tower.py packs it from a net of config.SENetConfig): the
+// wide kernel's tower_kernel_wide<F, kActRelu, true>, at F = 128 and 256.
+// Every activation is a ReLU, and the second layer of each residual block
+// ends in se_epilogue instead of the skip add:
+//   y = acc + bias; s = the mean of y over the board's 42 rows   [3, F]
+//   z = relu(W1 s + b1)                                         [3, width]
+//   (gamma, shift) = W2 z + b2                                  [3, 2F]
+//   out = relu(sigmoid(gamma) * y + shift + x), rounded to bf16 in place of x
+// - The mean crosses warps and warpgroups (board 1 of a tile is rows 42-83,
+//   warps 2-5). Once both warpgroups' products of the layer are done, the
+//   layer's source tile Y is dead and holds the gate's scratch (SeScratch:
+//   37,248 of its 64,512 bytes at F=256): each warp's sum of its rows of a
+//   board (each thread's two rows added first, then a fixed tree over the 8
+//   threads of a column in a warp), then a board's warps in order.
+// - The squeeze is a compile-time width, kSeWidth256 = 32 (kSeWidth128 = 16):
+//   se_ratio 8. The Dense layers' bf16 weights (48 KB a block at F=256) do
+//   not fit beside the tile and the ring: they are read through L2 (__ldg)
+//   into registers, each thread's share issued at once a barrier before it
+//   is used. Dense 1: a thread an (output, run of F/8 inputs), the three
+//   boards from the same weights, then the runs summed in order; Dense 2: a
+//   thread an output (two at F=256), its W terms in order; every product
+//   and sum rounded on its own (__fmul_rn, __fadd_rn: no fused
+//   multiply-add), float32; the sigmoid in double, rounded to float32.
+//   tower.py's _se_kernel_order repeats these sums, so
+//   tower_plain(tensor_core=True) gives the kernel's output.
+// - Five barriers of the two consumer warpgroups an SE block; the producer
+//   runs on ahead into the next layer's weights meanwhile.
+//
 // Layer kernel (towers wider than 256 filters, at any width; tower.py pads F
 // to the next multiple of 64 that a column tile N of 256, 224, 192 or 160
 // divides: Fp = 320, 384, 448, 512, 576, 640, 768, ... 1024, ...). A block
@@ -971,11 +1000,22 @@ struct WideCfg {
   static_assert(kSmem <= kSmemLimit, "shared memory");
 };
 
-// bias, residual, LeakyReLU, round to bf16, store the valid rows of one
+// the body's activation (ACT): the oinkoink ResNet's LeakyReLU, or the ReLU
+// of the squeeze-and-excitation body
+constexpr int kActLeaky = 0;
+constexpr int kActRelu = 1;
+
+template <int ACT>
+__device__ __forceinline__ float activate(float v) {
+  if constexpr (ACT == kActLeaky) return lrelu(v);
+  return v >= 0.f ? v : 0.f;
+}
+
+// bias, residual, the activation, round to bf16, store the valid rows of one
 // 64-row tile swizzled (the rows past the tile's boards are not kept).
 // Accumulator layout: d[4j + 2h + e] is row g + 8h, column 8j + 2t + e of the
 // warp's 16 rows.
-template <int F, bool kResidual>
+template <int F, bool kResidual, int ACT>
 __device__ __forceinline__ void wide_epilogue(const float (&acc)[F / 2], unsigned char* dst,
                                               const float* bias, int row_g, int t) {
 #pragma unroll
@@ -994,7 +1034,7 @@ __device__ __forceinline__ void wide_epilogue(const float (&acc)[F / 2], unsigne
           y0 += x.x;
           y1 += x.y;
         }
-        *out = __floats2bfloat162_rn(lrelu(y0), lrelu(y1));
+        *out = __floats2bfloat162_rn(activate<ACT>(y0), activate<ACT>(y1));
       }
     }
   }
@@ -1005,14 +1045,238 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kWarpgroups * 128) : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// The squeeze-and-excitation epilogue (see "Squeeze and excitation" in the
+// header): the weights of the gate's two Dense layers, bf16, as
+// tower.py::pack_weights lays them out; W the squeeze, SeWidth<F>::value.
+struct SeArgs {
+  const __nv_bfloat16* w1;  // [blocks, W, F]: Dense 1 as [out, in]
+  const __nv_bfloat16* b1;  // [blocks, W]
+  const __nv_bfloat16* w2;  // [blocks, 2F, W]: Dense 2, gammas' rows, then shifts'
+  const __nv_bfloat16* b2;  // [blocks, 2F]
+};
+
+constexpr int kSeChunks = 8;      // Dense 1's sums of F terms, cut into this many runs
+constexpr int kSeWidth128 = 16;   // the squeeze the gate is built for at F=128 (se_ratio 8)
+constexpr int kSeWidth256 = 32;   // ... at F=256
+
+// The gate's scratch, in the odd layer's source tile Y (whose rows are dead
+// once both warpgroups' products of the layer are done), float32; W the
+// squeeze:
+template <int F, int W>
+struct SeScratch {
+  static constexpr int kPartOff = 0;                            // [3 boards][8 warps][F]: a warp's sum of its rows of a board
+  static constexpr int kMeanOff = kPartOff + 3 * 8 * F * 4;     // [3][F]: the board's mean
+  static constexpr int kChunkOff = kMeanOff + 3 * F * 4;        // [kSeChunks][3][W]: Dense 1's runs
+  static constexpr int kZOff = kChunkOff + kSeChunks * 3 * W * 4;  // [3][W]: the squeeze
+  static constexpr int kGateOff = kZOff + 3 * W * 4;            // [3][2F]: sigmoid(gamma), then the shift
+  static constexpr int kBytes = kGateOff + 3 * 2 * F * 4;
+};
+
 template <int F>
+struct SeWidth {
+  static constexpr int value = F == 128 ? kSeWidth128 : kSeWidth256;
+};
+
+// a bf16 pair as two floats, from the low and the high half of a word
+__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// The odd layer of an SE block, after its products: y = acc + bias (kept in
+// acc), the per-board mean of y over 42 rows, the gate's Dense layers and
+// out = relu(sigmoid(gamma) * y + shift + x), rounded to bf16 into X, in
+// place of the block's input x. Every sum runs in a fixed order that
+// tower.py::_se_kernel_order repeats; every product and sum is rounded on
+// its own (no fused multiply-add), and the sigmoid is taken in double.
+template <int F>
+__device__ __forceinline__ void se_epilogue(float (&acc)[F / 2], unsigned char* X, unsigned char* scratch,
+                                            const float* bias, const SeArgs& se, int block, int tid,
+                                            int row_g, int t) {
+  constexpr int W = SeWidth<F>::value;
+  using S = SeScratch<F, W>;
+  float* part = reinterpret_cast<float*>(scratch + S::kPartOff);
+  float* mean = reinterpret_cast<float*>(scratch + S::kMeanOff);
+  float* chunk = reinterpret_cast<float*>(scratch + S::kChunkOff);
+  float* z = reinterpret_cast<float*>(scratch + S::kZOff);
+  float* gate = reinterpret_cast<float*>(scratch + S::kGateOff);
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2;
+#pragma unroll
+  for (int j = 0; j < F / 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      acc[4 * j + 2 * h] = __fadd_rn(acc[4 * j + 2 * h], b.x);
+      acc[4 * j + 2 * h + 1] = __fadd_rn(acc[4 * j + 2 * h + 1], b.y);
+    }
+  }
+  consumer_sync();  // both warpgroups' products are done: Y is free
+
+  // 1. each warp's sum of its rows of each board it touches: a thread adds
+  // its two rows (the other board's, and the rows past the boards, as 0),
+  // then the 8 lanes of a column sum in a fixed tree, ((0+1)+(2+3))+((4+5)+
+  // (6+7)) by g, each lane keeping the sums of a quarter of the last step's
+  // columns (a reduce-scatter: 28 shuffles for 32 columns, not 96)
+  const int b_row0 = row_g < kTileBoards * kArea ? row_g / kArea : kTileBoards;
+  const int b_row1 = row_g + 8 < kTileBoards * kArea ? (row_g + 8) / kArea : kTileBoards;
+  const int b_first = warp * 16 / kArea;
+  const int b_last = min((warp * 16 + 15) / kArea, kTileBoards - 1);
+  const bool s0 = g & 1, s1 = (g >> 1) & 1, s2 = (g >> 2) & 1;
+  for (int bd = b_first; bd <= b_last; ++bd) {
+#pragma unroll
+    for (int c0 = 0; c0 < F / 8; c0 += 16) {  // 16 column groups: 32 columns of this thread
+      // q = 2 (j - c0) + e: column 8j + 2t + e
+      auto m = [&](int q) {
+        const int j = c0 + q / 2, e = q % 2;
+        return __fadd_rn(b_row0 == bd ? acc[4 * j + e] : 0.f, b_row1 == bd ? acc[4 * j + 2 + e] : 0.f);
+      };
+      float v1[16], v2[8], v3[4];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float keep = s0 ? m(16 + i) : m(i), send = s0 ? m(i) : m(16 + i);
+        v1[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 4));
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float keep = s1 ? v1[8 + i] : v1[i], send = s1 ? v1[i] : v1[8 + i];
+        v2[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 8));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float keep = s2 ? v2[4 + i] : v2[i], send = s2 ? v2[i] : v2[4 + i];
+        v3[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 16));
+      }
+      const int q0 = 16 * s0 + 8 * s1 + 4 * s2;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = q0 + i;
+        part[(bd * 8 + warp) * F + 8 * (c0 + q / 2) + 2 * t + q % 2] = v3[i];
+      }
+    }
+  }
+  // Dense 1's weights for this thread's output j and run k, loaded now so
+  // that their trip to L2 overlaps the means (each weight serves 3 boards)
+  constexpr int kRun = F / kSeChunks;
+  const int j1 = tid % W, k1 = tid / W;
+  const bool fc1 = tid < W * kSeChunks;
+  uint4 w1v[kRun / 8];
+  if (fc1) {
+    const uint4* wr = reinterpret_cast<const uint4*>(se.w1 + (size_t(block) * W + j1) * F + k1 * kRun);
+#pragma unroll
+    for (int c = 0; c < kRun / 8; ++c) w1v[c] = __ldg(wr + c);
+  }
+  consumer_sync();
+
+  // 2. a board's mean: its warps' sums in warp order, over 42
+  for (int i = tid; i < kTileBoards * F; i += kWarpgroups * 128) {
+    const int bd = i / F, c = i % F;
+    const int w0 = bd * kArea / 16, w1 = (bd * kArea + kArea - 1) / 16;
+    float sum = part[(bd * 8 + w0) * F + c];
+    for (int w = w0 + 1; w <= w1; ++w) sum = __fadd_rn(sum, part[(bd * 8 + w) * F + c]);
+    mean[i] = __fdiv_rn(sum, float(kArea));
+  }
+  consumer_sync();
+
+  // 3. Dense 1 in kSeChunks runs of kRun terms a (board, output), each from
+  // 0 in order; then the runs in order, the bias, ReLU
+  if (fc1) {
+#pragma unroll
+    for (int bd = 0; bd < kTileBoards; ++bd) {
+      const float* sr = mean + bd * F + k1 * kRun;
+      float a = 0.f;
+#pragma unroll
+      for (int c = 0; c < kRun / 8; ++c) {
+        const uint32_t ws[4] = {w1v[c].x, w1v[c].y, w1v[c].z, w1v[c].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          a = __fadd_rn(a, __fmul_rn(bf_lo(ws[u]), sr[8 * c + 2 * u]));
+          a = __fadd_rn(a, __fmul_rn(bf_hi(ws[u]), sr[8 * c + 2 * u + 1]));
+        }
+      }
+      chunk[(k1 * kTileBoards + bd) * W + j1] = a;  // [k][board][j]
+    }
+  }
+  // Dense 2's weights of this thread's first output, loaded before the
+  // squeeze is summed
+  constexpr int kOuts = 2 * F / (kWarpgroups * 128);  // Dense 2 outputs a thread
+  const __nv_bfloat16* w2 = se.w2 + size_t(block) * 2 * F * W;
+  uint4 w2v[W / 8];
+#pragma unroll
+  for (int c = 0; c < W / 8; ++c) w2v[c] = __ldg(reinterpret_cast<const uint4*>(w2 + size_t(tid) * W) + c);
+  consumer_sync();
+  const __nv_bfloat16* b1 = se.b1 + size_t(block) * W;
+  for (int i = tid; i < kTileBoards * W; i += kWarpgroups * 128) {
+    float a = chunk[i];
+#pragma unroll
+    for (int k = 1; k < kSeChunks; ++k) a = __fadd_rn(a, chunk[k * kTileBoards * W + i]);
+    a = __fadd_rn(a, __bfloat162float(b1[i % W]));
+    z[i] = a >= 0.f ? a : 0.f;
+  }
+  consumer_sync();
+
+  // 4. Dense 2, the three boards at once, each output's W terms from 0 in
+  // order, then the bias; the gammas' sigmoid
+  const __nv_bfloat16* b2 = se.b2 + size_t(block) * 2 * F;
+#pragma unroll
+  for (int m = 0; m < kOuts; ++m) {
+    const int k = tid + m * kWarpgroups * 128;
+    if (m > 0) {
+#pragma unroll
+      for (int c = 0; c < W / 8; ++c) w2v[c] = __ldg(reinterpret_cast<const uint4*>(w2 + size_t(k) * W) + c);
+    }
+    float a[kTileBoards] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < W / 8; ++c) {
+      const uint32_t ws[4] = {w2v[c].x, w2v[c].y, w2v[c].z, w2v[c].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int bd = 0; bd < kTileBoards; ++bd) {
+          a[bd] = __fadd_rn(a[bd], __fmul_rn(bf_lo(ws[u]), z[bd * W + 8 * c + 2 * u]));
+          a[bd] = __fadd_rn(a[bd], __fmul_rn(bf_hi(ws[u]), z[bd * W + 8 * c + 2 * u + 1]));
+        }
+      }
+    }
+    const float bk = __bfloat162float(b2[k]);
+#pragma unroll
+    for (int bd = 0; bd < kTileBoards; ++bd) {
+      const float e = __fadd_rn(a[bd], bk);
+      gate[bd * 2 * F + k] = k < F ? float(1.0 / (1.0 + exp(-double(e)))) : e;
+    }
+  }
+  consumer_sync();
+
+  // 5. out = relu((sigmoid(gamma) * y + shift) + x), in place of x in X
+#pragma unroll
+  for (int j = 0; j < F / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_g + 8 * h;
+      if (row < kTileBoards * kArea) {
+        const float* gb = gate + (row / kArea) * 2 * F + 8 * j + 2 * t;
+        __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(
+            X + row * (2 * F) + ((uint32_t(j) ^ swz<F>(row)) << 4) + 4 * t);
+        const float2 x = __bfloat1622float2(*out);
+        float y0 = __fadd_rn(__fadd_rn(__fmul_rn(gb[0], acc[4 * j + 2 * h]), gb[F]), x.x);
+        float y1 = __fadd_rn(__fadd_rn(__fmul_rn(gb[1], acc[4 * j + 2 * h + 1]), gb[F + 1]), x.y);
+        *out = __floats2bfloat162_rn(activate<kActRelu>(y0), activate<kActRelu>(y1));
+      }
+    }
+  }
+}
+
+// ACT: the body's activation; SE: each residual block's second layer ends in
+// the squeeze-and-excitation gate (se_epilogue, with se's weights; ReLU)
+template <int F, int ACT, bool SE>
 __global__ void __launch_bounds__(WideCfg<F>::kThreads, 1)
 tower_kernel_wide(const float* __restrict__ x, const __nv_bfloat16* __restrict__ conv1_img,
                   const __nv_bfloat16* __restrict__ conv1_b,
                   const __nv_bfloat16* __restrict__ res_img,
                   const __nv_bfloat16* __restrict__ res_b, __nv_bfloat16* __restrict__ out,
-                  int n_boards, int cin0, int n_res_layers) {
+                  int n_boards, int cin0, int n_res_layers, SeArgs se) {
   using C = WideCfg<F>;
+  static_assert(!SE || (ACT == kActRelu && SeScratch<F, SeWidth<F>::value>::kBytes <= C::kActBytes &&
+                        SeWidth<F>::value * kSeChunks <= C::kConsumers && 2 * F % C::kConsumers == 0),
+                "the gate's scratch fits Y; Dense 1's (output, run)s and Dense 2's outputs spread over the consumers");
   constexpr int ND = F / 2;  // accumulator registers per thread
   constexpr int W = C::kWStages;
   extern __shared__ unsigned char smem_raw[];
@@ -1150,7 +1414,7 @@ tower_kernel_wide(const float* __restrict__ x, const __nv_bfloat16* __restrict__
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(acc);
-    wide_epilogue<F, false>(acc, X, bias, row_g, t);
+    wide_epilogue<F, false, ACT>(acc, X, bias, row_g, t);
   }
 
   // --- residual blocks: layer l reads X (even l) or Y (odd l) --------------
@@ -1209,10 +1473,14 @@ tower_kernel_wide(const float* __restrict__ x, const __nv_bfloat16* __restrict__
     reg_fence(acc);
     for (int i = NB - 1; i > 0; --i) release(n0 + C::kLayerStages - i);
 
-    if (odd)
-      wide_epilogue<F, true>(acc, dst, lbias, row_g, t);
-    else
-      wide_epilogue<F, false>(acc, dst, lbias, row_g, t);
+    if (odd) {
+      if constexpr (SE)
+        se_epilogue<F>(acc, dst, Y, lbias, se, l / 2, tid, row_g, t);
+      else
+        wide_epilogue<F, true, ACT>(acc, dst, lbias, row_g, t);
+    } else {
+      wide_epilogue<F, false, ACT>(acc, dst, lbias, row_g, t);
+    }
   }
   consumer_sync();
 
@@ -1226,15 +1494,15 @@ tower_kernel_wide(const float* __restrict__ x, const __nv_bfloat16* __restrict__
   cluster_sync();
 }
 
-template <int F>
+template <int F, int ACT = kActLeaky, bool SE = false>
 int launch_wide(const float* x, const __nv_bfloat16* conv1_img, const __nv_bfloat16* conv1_b,
                 const __nv_bfloat16* res_img, const __nv_bfloat16* res_b, __nv_bfloat16* out,
-                int n_boards, int cin0, int n_res_layers, cudaStream_t stream) {
+                int n_boards, int cin0, int n_res_layers, cudaStream_t stream, SeArgs se = SeArgs{}) {
   using C = WideCfg<F>;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err =
-        cudaFuncSetAttribute(tower_kernel_wide<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    cudaError_t err = cudaFuncSetAttribute(tower_kernel_wide<F, ACT, SE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
     if (err != cudaSuccess) return int(err);
     configured = true;
   }
@@ -1252,8 +1520,8 @@ int launch_wide(const float* x, const __nv_bfloat16* conv1_img, const __nv_bfloa
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, tower_kernel_wide<F>, x, conv1_img, conv1_b, res_img, res_b, out,
-                                       n_boards, cin0, n_res_layers);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, tower_kernel_wide<F, ACT, SE>, x, conv1_img, conv1_b, res_img, res_b,
+                                       out, n_boards, cin0, n_res_layers, se);
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }
@@ -1747,6 +2015,35 @@ int c4_tower_forward_chain(const void* x, const void* conv1_img, const void* con
     return launch_wide<128>(xp, w1, b1, wr, br, o, n_boards, cin0, n_res_layers, s);
   if (filters == 256 && chain == kShippedChain)
     return launch_wide<256>(xp, w1, b1, wr, br, o, n_boards, cin0, n_res_layers, s);
+  return int(cudaErrorInvalidValue);
+}
+
+// The squeeze-and-excitation tower (tower_kernel_wide<F, ReLU, SE>): the
+// arguments of c4_tower_forward, F 128 or 256, n_res_layers even, and the
+// gate's weights (SeArgs: se_w1 [n_res_layers/2, W, F], se_b1
+// [n_res_layers/2, W], se_w2 [n_res_layers/2, 2F, W], se_b2
+// [n_res_layers/2, 2F], bf16, 16-byte aligned), W the squeeze the kernel is
+// built for at F (kSeWidth128, kSeWidth256; tower.py checks it). Returns a
+// cudaError_t (cudaErrorInvalidValue for a combination it does not take).
+int c4_tower_forward_se(const void* x, const void* conv1_img, const void* conv1_b, const void* res_img,
+                        const void* res_b, const void* se_w1, const void* se_b1, const void* se_w2,
+                        const void* se_b2, void* out, int n_boards, int cin0, int filters, int n_res_layers,
+                        void* stream) {
+  if (n_boards <= 0) return int(cudaSuccess);
+  if (cin0 < 1 || cin0 > kMaxCin0 || n_res_layers < 0 || n_res_layers % 2) return int(cudaErrorInvalidValue);
+  const SeArgs se{static_cast<const __nv_bfloat16*>(se_w1), static_cast<const __nv_bfloat16*>(se_b1),
+                  static_cast<const __nv_bfloat16*>(se_w2), static_cast<const __nv_bfloat16*>(se_b2)};
+  const auto* xp = static_cast<const float*>(x);
+  const auto* w1 = static_cast<const __nv_bfloat16*>(conv1_img);
+  const auto* b1 = static_cast<const __nv_bfloat16*>(conv1_b);
+  const auto* wr = static_cast<const __nv_bfloat16*>(res_img);
+  const auto* br = static_cast<const __nv_bfloat16*>(res_b);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (filters == 128)
+    return launch_wide<128, kActRelu, true>(xp, w1, b1, wr, br, o, n_boards, cin0, n_res_layers, s, se);
+  if (filters == 256)
+    return launch_wide<256, kActRelu, true>(xp, w1, b1, wr, br, o, n_boards, cin0, n_res_layers, s, se);
   return int(cudaErrorInvalidValue);
 }
 

@@ -41,6 +41,18 @@ Parity details kept from the JAX net:
   what the next conv takes, and, where a skip follows, once in float32, the
   residual stream. CPU tensors, eval mode and the data-parallel BatchNorm
   keep ``_bn`` and ``lrelu``.
+
+An ``SENetConfig`` builds Leela Chess Zero's squeeze-and-excitation body
+(lczero-training ``tf/tfprocess.py``) under the same heads: ReLU wherever
+the body has an activation, and in each residual block, after the second
+BatchNorm (no activation there), ``se_gate``: the mean of each channel over
+the board's 42 cells, a Dense layer of ``filters // se_ratio`` with ReLU, a
+Dense layer of ``2 * filters`` split into gammas and then shifts, and
+``relu(sigmoid(gamma) * y + shift + skip)`` (``models.se_gate``: a
+hand-written kernel a direction on the card, its plain version on the
+CPU). The gate runs in float32 on every path (it is per board, so data
+parallelism adds no all-reduce); on the fused path the second BatchNorm
+hands it its float32 output.
 """
 
 from __future__ import annotations
@@ -52,8 +64,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from connect4_tpu_torch.config import NetConfig
+from connect4_tpu_torch.config import NetConfig, SENetConfig
 from connect4_tpu_torch.models import batch_norm
+from connect4_tpu_torch.models.se_gate import se_gate
 from connect4_tpu_torch.types import AREA, WIDTH
 from connect4_tpu_torch.utils import DeviceLike, resolve_device
 
@@ -63,6 +76,21 @@ BN_EPS = 1e-5
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, x * LEAKY_SLOPE)
+
+
+# the body's activation after a BatchNorm, by name (``batch_norm.ACTS``)
+_ACTS = {"leaky": lrelu, "relu": torch.relu, "none": lambda x: x}
+
+
+def is_se(config: NetConfig) -> bool:
+    """Whether ``config`` builds the squeeze-and-excitation body."""
+    return isinstance(config, SENetConfig)
+
+
+def body_act(config: NetConfig) -> str:
+    """The body's activation: ReLU in the squeeze-and-excitation body,
+    LeakyReLU in the ResNet's."""
+    return "relu" if is_se(config) else "leaky"
 
 
 def compute_dtype(config: NetConfig) -> torch.dtype:
@@ -130,15 +158,17 @@ def _fused(planes: torch.Tensor, training: bool, mesh) -> bool:
     return planes.device.type == "cuda" and training and (mesh is None or mesh.world_size == 1)
 
 
-def _bn_act(x: torch.Tensor, bn: nn.BatchNorm2d, mesh=None, fused: bool = False, skip=None, stream: bool = False):
-    """``lrelu(BatchNorm(x) + skip)`` as ``(y, y_stream)``: ``y`` what the
-    next conv takes, ``y_stream`` the float32 activation where ``stream``
-    asks for it (a skip follows). ``fused`` runs ``batch_norm_act``;
-    otherwise both are the float32 ``lrelu(_bn(x) + skip)``."""
+def _bn_act(x: torch.Tensor, bn: nn.BatchNorm2d, mesh=None, fused: bool = False, skip=None, stream: bool = False,
+            act: str = "leaky"):
+    """``act(BatchNorm(x) + skip)`` as ``(y, y_stream)`` (``act`` LeakyReLU,
+    ReLU or none): ``y`` what the next conv takes, ``y_stream`` the float32
+    activation where ``stream`` asks for it (a skip or the gate follows).
+    ``fused`` runs ``batch_norm_act``; otherwise both are the float32
+    ``act(_bn(x) + skip)``."""
     if fused:
-        return batch_norm.batch_norm_act_unchecked(x, bn, skip, stream)
+        return batch_norm.batch_norm_act_unchecked(x, bn, skip, stream, act=act)
     y = _bn(x, bn, mesh)
-    y = lrelu(y if skip is None else y + skip)
+    y = _ACTS[act](y if skip is None else y + skip)
     return y, y
 
 
@@ -148,14 +178,15 @@ def _flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class _ConvBlock(nn.Module):
-    def __init__(self, cin: int, filters: int):
+    def __init__(self, cin: int, filters: int, act: str = "leaky"):
         super().__init__()
         self.conv = nn.Conv2d(cin, filters, 3, padding=1, bias=False)
         self.bn = nn.BatchNorm2d(filters, eps=BN_EPS)
+        self.act = act
 
     def forward(self, x, dtype, mesh=None, fused=False, stream=False):
         """``(conv input, float32 stream)`` of the tower's first layer."""
-        return _bn_act(_conv(x, self.conv, dtype, fused), self.bn, mesh, fused, stream=stream)
+        return _bn_act(_conv(x, self.conv, dtype, fused), self.bn, mesh, fused, stream=stream, act=self.act)
 
 
 class _ResidualBlock(nn.Module):
@@ -172,6 +203,39 @@ class _ResidualBlock(nn.Module):
         x, skip = x
         y, _ = _bn_act(_conv(x, self.conv0, dtype, fused), self.bn0, mesh, fused)
         return _bn_act(_conv(y, self.conv1, dtype, fused), self.bn1, mesh, fused, skip=skip, stream=stream)
+
+
+class _SqueezeExcitation(nn.Module):
+    """The gate's two Dense layers: ``filters`` -> ``filters // se_ratio``
+    -> ``2 * filters`` (gammas, then shifts)."""
+
+    def __init__(self, filters: int, se_ratio: int):
+        super().__init__()
+        self.fc1 = nn.Linear(filters, filters // se_ratio)
+        self.fc2 = nn.Linear(filters // se_ratio, 2 * filters)
+
+
+class _SEResidualBlock(nn.Module):
+    """lc0's residual block: conv, BatchNorm, ReLU, conv, BatchNorm, then
+    ``se_gate`` with the block's input as the skip."""
+
+    def __init__(self, filters: int, se_ratio: int):
+        super().__init__()
+        self.conv0 = nn.Conv2d(filters, filters, 3, padding=1, bias=False)
+        self.bn0 = nn.BatchNorm2d(filters, eps=BN_EPS)
+        self.conv1 = nn.Conv2d(filters, filters, 3, padding=1, bias=False)
+        self.bn1 = nn.BatchNorm2d(filters, eps=BN_EPS)
+        self.se = _SqueezeExcitation(filters, se_ratio)
+
+    def forward(self, x, dtype, mesh=None, fused=False, stream=False):
+        """``x`` = (conv input, float32 stream) -> the same of the block's
+        output (the stream is the gate's float32 output either way)."""
+        x, skip = x
+        y, _ = _bn_act(_conv(x, self.conv0, dtype, fused), self.bn0, mesh, fused, act="relu")
+        _, y = _bn_act(_conv(y, self.conv1, dtype, fused), self.bn1, mesh, fused, stream=True, act="none")
+        se = self.se
+        out, out_c = se_gate(y, skip, se.fc1.weight, se.fc1.bias, se.fc2.weight, se.fc2.bias, dtype)
+        return out_c, out
 
 
 def _head_bn_act(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype, mesh, fused) -> torch.Tensor:
@@ -228,10 +292,9 @@ class Connect4Net(nn.Module):
         super().__init__()
         self.config = config
         f = config.filters
-        self.conv_block = _ConvBlock(config.channels, f)
-        self.res_blocks = nn.ModuleList(
-            [_ResidualBlock(f) for _ in range(config.n_residuals)]
-        )
+        self.conv_block = _ConvBlock(config.channels, f, body_act(config))
+        block = (lambda: _SEResidualBlock(f, config.se_ratio)) if is_se(config) else (lambda: _ResidualBlock(f))
+        self.res_blocks = nn.ModuleList([block() for _ in range(config.n_residuals)])
         self.value_head = _ValueHead(f, config.n_fc_layers)
         self.policy_head = _PolicyHead(f)
 
@@ -261,7 +324,8 @@ class InferenceNet(nn.Module):
     """``Connect4Net`` with every BatchNorm folded away (inference only).
     Its parameters come from ``fold_bn_params``. Rounding follows the Flax
     ``InferenceNet``: every conv and Dense runs in the compute dtype,
-    bias included."""
+    bias included. The squeeze-and-excitation body's gate runs in float32
+    (``se_gate``) on the folded second conv's output."""
 
     def __init__(self, config: NetConfig):
         super().__init__()
@@ -271,6 +335,10 @@ class InferenceNet(nn.Module):
         self.res = nn.ModuleList(
             [nn.Conv2d(f, f, 3, padding=1) for _ in range(2 * config.n_residuals)]
         )
+        if is_se(config):
+            s = f // config.se_ratio
+            self.se_fc1 = nn.ModuleList([nn.Linear(f, s) for _ in range(config.n_residuals)])
+            self.se_fc2 = nn.ModuleList([nn.Linear(s, 2 * f) for _ in range(config.n_residuals)])
         self.vh_conv = nn.Conv2d(f, 1, 1)
         self.vh_fcs = nn.ModuleList(
             [nn.Linear(AREA, AREA) for _ in range(config.n_fc_layers)]
@@ -281,10 +349,15 @@ class InferenceNet(nn.Module):
 
     def forward(self, nhwc: torch.Tensor):
         dt = compute_dtype(self.config)
-        x = lrelu(_conv(nhwc.permute(0, 3, 1, 2), self.conv0, dt))
+        act = _ACTS[body_act(self.config)]
+        x = act(_conv(nhwc.permute(0, 3, 1, 2), self.conv0, dt))
         for i in range(self.config.n_residuals):
-            y = lrelu(_conv(x, self.res[2 * i], dt))
-            x = lrelu(_conv(y, self.res[2 * i + 1], dt) + x)
+            y = act(_conv(x, self.res[2 * i], dt))
+            if is_se(self.config):
+                fc1, fc2 = self.se_fc1[i], self.se_fc2[i]
+                x = se_gate(_conv(y, self.res[2 * i + 1], dt), x, fc1.weight, fc1.bias, fc2.weight, fc2.bias, dt)[1]
+            else:
+                x = lrelu(_conv(y, self.res[2 * i + 1], dt) + x)
         v = _flatten_nhwc(lrelu(_conv(x, self.vh_conv, dt)))
         for fc in self.vh_fcs:
             v = _dense(v, fc, dt)
@@ -318,6 +391,9 @@ def fold_bn_params(net: Connect4Net) -> Dict[str, torch.Tensor]:
     for i, blk in enumerate(net.res_blocks):
         put(f"res.{2 * i}", _fold_conv_bn(blk.conv0, blk.bn0))
         put(f"res.{2 * i + 1}", _fold_conv_bn(blk.conv1, blk.bn1))
+        if is_se(net.config):
+            put(f"se_fc1.{i}", (blk.se.fc1.weight, blk.se.fc1.bias))
+            put(f"se_fc2.{i}", (blk.se.fc2.weight, blk.se.fc2.bias))
     vh, ph = net.value_head, net.policy_head
     put("vh_conv", _fold_conv_bn(vh.conv, vh.bn))
     for i, fc in enumerate(vh.fcs):
@@ -369,5 +445,7 @@ __all__ = [
     "fold_bn_params",
     "inference_net",
     "init_net",
+    "is_se",
     "lrelu",
+    "se_gate",
 ]

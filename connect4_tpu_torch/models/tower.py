@@ -40,6 +40,19 @@ ones, and ``heads`` reads the real channels only. The plain version
 computes on the same padded tensors, so the CPU and the card compute one
 function.
 
+Squeeze and excitation. A net of ``config.SENetConfig`` (Leela Chess
+Zero's body) packs the gate's two Dense layers too (``se_w1``, ``se_b1``,
+``se_w2``, ``se_b2``, bf16) and runs ``tower_kernel_wide<F, ReLU, SE>``:
+ReLU for every activation of the body, and each block's second layer
+ending in the gate, ``relu(sigmoid(gamma) * y + shift + x)``, computed in
+float32 (``models.se_gate``). It runs on the card at packed
+widths 128 and 256 only, at the squeeze ``SE_WIDTH`` the kernel is built
+for (se_ratio 8); anything else raises for a CUDA input.
+``run_tower.se_blocks`` counts the gates the card ran. In the plain version
+``tensor_core=True`` also sums the gate in the kernel's order
+(``_se_kernel_order``), so it gives the kernel's output; the default form
+takes the gate's plain version, ``se_gate_plain``.
+
 Numerics (both versions, as in the Pallas kernel): inputs rounded to bf16,
 bf16 weights, float32 accumulation, float32 bias add, LeakyReLU, a round
 to bf16 at every layer boundary, the residual add in float32. Both sum a
@@ -72,7 +85,8 @@ import torch.nn.functional as F
 from connect4_tpu_torch import launches
 from connect4_tpu_torch.build import load_library
 from connect4_tpu_torch.config import NetConfig
-from connect4_tpu_torch.models.net import lrelu
+from connect4_tpu_torch.models.net import is_se, lrelu
+from connect4_tpu_torch.models.se_gate import se_gate_plain
 from connect4_tpu_torch.types import AREA, HEIGHT, WIDTH
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "tower.cu")
@@ -149,14 +163,17 @@ def is_layer_width(fp: int) -> bool:
 def tower_bound(config: NetConfig, boards: int):
     """``(bound_ms, bound_by, flops, bytes)`` of the tower on ``boards``
     boards on an H100: every MAC of the convs on 42 rows a board (37.3
-    MFLOP a board at F=64, 6 residual blocks; 595 MFLOP at F=256), and each
-    input, weight and output byte moved once. The bound is the larger of
-    the operations over the bf16 peak and the bytes over the memory rate.
-    It counts the net's own width, so the zero channels a padded width
-    computes show as lost efficiency."""
+    MFLOP a board at F=64, 6 residual blocks; 595 MFLOP at F=256), and of
+    a squeeze-and-excitation body's gate Dense layers once a board, and
+    each input, weight and output byte moved once. The bound is the larger
+    of the operations over the bf16 peak and the bytes over the memory
+    rate. It counts the net's own width, so the zero channels a padded
+    width computes show as lost efficiency."""
     f, c, n = config.filters, config.channels, config.n_residuals
-    flops = boards * AREA * 2 * (9 * c * f + 2 * n * 9 * f * f)
-    weight_bytes = 2 * (9 * c * f + f + 2 * n * (9 * f * f + f))
+    sq = f // config.se_ratio if is_se(config) else 0  # the gate's squeeze: Dense f -> sq -> 2f
+    se_weights = 3 * f * sq + sq + 2 * f if sq else 0
+    flops = boards * (AREA * 2 * (9 * c * f + 2 * n * 9 * f * f) + n * 2 * 3 * f * sq)
+    weight_bytes = 2 * (9 * c * f + f + 2 * n * (9 * f * f + f) + n * se_weights)
     nbytes = boards * AREA * c * 4 + weight_bytes + boards * AREA * f * 2
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
@@ -173,7 +190,15 @@ def pack_weights(config: NetConfig, folded: Dict[str, torch.Tensor]) -> Dict[str
 
     The tower's tensors are at ``kernel_width(config.filters)``: conv output
     channels, residual input channels and biases padded with zeros. The
-    heads' tensors keep the net's own width."""
+    heads' tensors keep the net's own width.
+
+    A squeeze-and-excitation net (``SENetConfig``) adds the gate's Dense
+    layers, one a residual block, bf16, as ``[out, in]`` matrices:
+    ``se_w1 [n, S, fp]``, ``se_b1 [n, S]``, ``se_w2 [n, 2*fp, S]`` (the
+    gammas' rows, then the shifts'), ``se_b2 [n, 2*fp]``, ``S`` the squeeze
+    ``filters // se_ratio`` up to a multiple of 8. The padding is zeros: a
+    padded channel's gamma and shift are 0, so its output stays 0, and a
+    padded squeeze unit adds 0."""
 
     f = config.filters
     fp = kernel_width(f)
@@ -207,7 +232,9 @@ def pack_weights(config: NetConfig, folded: Dict[str, torch.Tensor]) -> Dict[str
     else:
         conv1_img = smem_image(conv1_pad)  # [16*ceil(9*channels/16) * fp]
         res_img = smem_image(res_w.unflatten(1, (9, fp)))  # [2n, 9, fp*fp], one tap each
+    packed = {} if not is_se(config) else _pack_se(config, folded, fp)
     return {
+        **packed,
         "conv1_w": conv1_w,  # [9*channels, fp]
         "conv1_img": conv1_img,
         "conv1_b": bias("conv0.bias"),  # [fp]
@@ -225,6 +252,34 @@ def pack_weights(config: NetConfig, folded: Dict[str, torch.Tensor]) -> Dict[str
         "ph_fc_w": dense("ph_fc.weight"),  # [84, 7], rows in (r, c, ch) order
         "ph_fc_b": bf("ph_fc.bias"),
     }
+
+
+def se_width(config: NetConfig) -> int:
+    """The packed squeeze of a squeeze-and-excitation net: ``filters //
+    se_ratio`` up to a multiple of 8 (the kernel loads 8 bf16 at a time)."""
+    return -(-(config.filters // config.se_ratio) // 8) * 8
+
+
+def _pack_se(config: NetConfig, folded: Dict[str, torch.Tensor], fp: int) -> Dict[str, torch.Tensor]:
+    """The gate's Dense layers of ``pack_weights``, padded with zeros."""
+    f, n, sp = config.filters, config.n_residuals, se_width(config)
+    sq = f // config.se_ratio
+    dev = folded["conv0.weight"].device
+
+    def halves(t):  # [2f, ...] -> [2fp, ...]: gammas, then shifts, each padded to fp
+        pad = (0, 0) * (t.dim() - 1) + (0, fp - f)
+        return torch.cat([F.pad(t[:f], pad), F.pad(t[f:], pad)])
+
+    w1 = [F.pad(folded[f"se_fc1.{i}.weight"].detach(), (0, fp - f, 0, sp - sq)) for i in range(n)]
+    b1 = [F.pad(folded[f"se_fc1.{i}.bias"].detach(), (0, sp - sq)) for i in range(n)]
+    w2 = [halves(F.pad(folded[f"se_fc2.{i}.weight"].detach(), (0, sp - sq))) for i in range(n)]
+    b2 = [halves(folded[f"se_fc2.{i}.bias"].detach()) for i in range(n)]
+
+    def stack(ts, shape):
+        return (torch.stack(ts) if ts else torch.zeros((0, *shape), device=dev)).to(_BF16).contiguous()
+
+    return {"se_w1": stack(w1, (sp, fp)), "se_b1": stack(b1, (sp,)),
+            "se_w2": stack(w2, (2 * fp, sp)), "se_b2": stack(b2, (2 * fp,))}
 
 
 def smem_image(w: torch.Tensor) -> torch.Tensor:
@@ -314,6 +369,29 @@ def wide_plan(fp: int) -> Dict[str, int]:
         "threads": 384, "cluster": WIDE_CLUSTER[fp], "stage_slabs": stage_slabs, "stage_bytes": stage_bytes,
         "ring_stages": stages, "smem": ring_off + stages * stage_bytes + (2 * stages + 1) * 8 + row,
     }
+
+
+SE_CHUNKS = 8  # the kernel's kSeChunks: runs of Dense 1's sums
+# the squeeze the kernel's gate is built for at each wide width (kSeWidth128,
+# kSeWidth256): se_ratio 8
+SE_WIDTH = {128: 16, 256: 32}
+
+
+def se_scratch(fp: int) -> Dict[str, int]:
+    """The squeeze-and-excitation gate's scratch in the wide kernel's Y tile
+    (``SeScratch`` in ``csrc/tower.cu``): byte offsets of each warp's sums
+    of a board ``[3, 8, fp]``, the means ``[3, fp]``, Dense 1's runs
+    ``[SE_CHUNKS, 3, W]``, the squeeze ``[3, W]`` and the gates and shifts
+    ``[3, 2*fp]`` (float32, ``W = SE_WIDTH[fp]``), the bytes they take, and
+    the bytes Y has (126 rows)."""
+    w = SE_WIDTH[fp]
+    part = 0
+    mean = part + 3 * 8 * fp * 4
+    chunk = mean + 3 * fp * 4
+    z = chunk + SE_CHUNKS * 3 * w * 4
+    gate = z + 3 * w * 4
+    return {"part": part, "mean": mean, "chunk": chunk, "z": z, "gate": gate, "bytes": gate + 3 * 2 * fp * 4,
+            "y_bytes": TILE_BOARDS * AREA * 2 * fp}
 
 
 def wide_stages(fp: int, n_layers: int) -> torch.Tensor:
@@ -420,21 +498,92 @@ def _conv3x3_plain(
     return (acc + b.float()).unflatten(0, board_shape)
 
 
+def _pool_kernel_order(y: torch.Tensor) -> torch.Tensor:
+    """Each board's sum over its 42 cells of float32 ``y [B, 42, fp]`` as
+    ``se_epilogue`` sums it: boards in tiles of 3 on 128 rows (8 warps of
+    16 rows, a thread's rows g and g + 8 of its warp); in a warp a row of
+    another board adds 0, a thread adds its two rows, the 8 threads of a
+    column sum in the tree ((0+1)+(2+3))+((4+5)+(6+7)); then the warps of a
+    board in order. -> ``[B, fp]``."""
+    b, fp = y.shape[0], y.shape[-1]
+    t = -(-b // TILE_BOARDS)
+    rows = F.pad(y, (0, 0, 0, 0, 0, t * TILE_BOARDS - b)).reshape(t, TILE_BOARDS * AREA, fp)
+    rows = F.pad(rows, (0, 0, 0, 128 - TILE_BOARDS * AREA)).reshape(t, 8, 2, 8, fp)  # [tile, warp, h, g, fp]
+    board = torch.div(torch.arange(128, device=y.device), AREA, rounding_mode="floor").reshape(8, 2, 8, 1)
+    out = []
+    for bd in range(TILE_BOARDS):
+        w0, w1 = bd * AREA // 16, (bd * AREA + AREA - 1) // 16
+        mine = torch.where(board == bd, rows, torch.zeros((), device=y.device))
+        v = mine[:, :, 0] + mine[:, :, 1]  # [tile, warp, g, fp]
+        v = v[:, :, 0::2] + v[:, :, 1::2]
+        v = v[:, :, 0::2] + v[:, :, 1::2]
+        v = v[:, :, 0] + v[:, :, 1]  # [tile, warp, fp]
+        total = v[:, w0]
+        for w in range(w0 + 1, w1 + 1):
+            total = total + v[:, w]
+        out.append(total)
+    return torch.stack(out, 1).reshape(t * TILE_BOARDS, fp)[:b]
+
+
+def _se_kernel_order(y: torch.Tensor, x: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
+    """``se_gate`` on ``y [B, 42, fp]`` (float32, the bias added) and ``x``
+    (the block's bf16 input) summed as ``se_epilogue`` sums it: the pool
+    (``_pool_kernel_order``) over 42; Dense 1 in ``SE_CHUNKS`` runs of
+    ``fp / SE_CHUNKS`` terms, each from 0 in order, then the runs in order,
+    then the bias; Dense 2 from 0 in order, then the bias; each product and
+    sum rounded on its own; the sigmoid in float64. -> float32."""
+    fp = y.shape[-1]
+    total = _pool_kernel_order(y)
+    # divided by a tensor: on CUDA PyTorch takes a tensor over a scalar as a * (1 / scalar)
+    s = total / torch.full_like(total, float(AREA))  # [B, fp]
+    w1f, w2f = w1.float(), w2.float()
+    run = fp // SE_CHUNKS
+    sr = s.reshape(-1, 1, SE_CHUNKS, run)
+    wr = w1f.reshape(1, -1, SE_CHUNKS, run)
+    acc = torch.zeros((s.shape[0], w1.shape[0], SE_CHUNKS), device=y.device)
+    for c in range(run):
+        acc = acc + wr[..., c] * sr[..., c]
+    z = acc[..., 0]
+    for k in range(1, SE_CHUNKS):
+        z = z + acc[..., k]
+    z = torch.relu(z + b1.float())  # [B, S]
+    e = torch.zeros((s.shape[0], w2.shape[0]), device=y.device)
+    for j in range(w2.shape[1]):
+        e = e + w2f[None, :, j] * z[:, j, None]
+    e = e + b2.float()
+    gate = (1.0 / (1.0 + torch.exp(-e[:, :fp].double()))).float()
+    out = gate[:, None, :] * y + e[:, None, fp:]
+    return torch.relu(out + x.float())
+
+
 def tower_plain(
     packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain: str = CHAIN, tensor_core: bool = False
 ) -> torch.Tensor:
     """The tower in plain tensor code: ``[B*42, C]`` -> ``[B*42, fp]`` bf16
     (``fp`` the packed, padded width), summed in the kernel's order at
     chain length ``chain``; a chain's inner sum rounded to nearest, or as
-    the tensor core computes it."""
+    the tensor core computes it. A squeeze-and-excitation net's gate
+    (``packed`` holds ``se_w1``) runs in float32 after each block's second
+    conv, as ``se_gate_plain`` writes it, or with ``tensor_core`` in the
+    kernel's order (``_se_kernel_order``)."""
     b = x2d.shape[0] // AREA
+    se = "se_w1" in packed
+    act = torch.relu if se else lrelu
     x = x2d.to(_BF16).reshape(b, HEIGHT, WIDTH, -1)
-    x = lrelu(_conv3x3_plain(x, packed["conv1_w"], packed["conv1_b"], chain, tensor_core)).to(_BF16)
+    x = act(_conv3x3_plain(x, packed["conv1_w"], packed["conv1_b"], chain, tensor_core)).to(_BF16)
     res_w, res_b = packed["res_w"], packed["res_b"]
     for i in range(res_w.shape[0] // 2):
-        y = lrelu(_conv3x3_plain(x, res_w[2 * i], res_b[2 * i], chain, tensor_core)).to(_BF16)
+        y = act(_conv3x3_plain(x, res_w[2 * i], res_b[2 * i], chain, tensor_core)).to(_BF16)
         y2 = _conv3x3_plain(y, res_w[2 * i + 1], res_b[2 * i + 1], chain, tensor_core)
-        x = lrelu(y2 + x.float()).to(_BF16)
+        if not se:
+            x = lrelu(y2 + x.float()).to(_BF16)
+            continue
+        gate = (packed["se_w1"][i], packed["se_b1"][i], packed["se_w2"][i], packed["se_b2"][i])
+        if tensor_core:
+            out = _se_kernel_order(y2.flatten(1, 2), x.flatten(1, 2), *gate).unflatten(1, (HEIGHT, WIDTH))
+        else:  # se_gate on [B, fp, 6, 7] views
+            out = se_gate_plain(y2.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), *gate)[0].permute(0, 2, 3, 1)
+        x = out.to(_BF16)
     return x.reshape(b * AREA, -1)
 
 
@@ -447,7 +596,8 @@ def _library() -> ctypes.CDLL:
     lib.c4_tower_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.c4_tower_forward_chain.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.c4_tower_layer.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    for fn in (lib.c4_tower_forward, lib.c4_tower_forward_chain, lib.c4_tower_layer):
+    lib.c4_tower_forward_se.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    for fn in (lib.c4_tower_forward, lib.c4_tower_forward_chain, lib.c4_tower_layer, lib.c4_tower_forward_se):
         fn.restype = ctypes.c_int
     return lib
 
@@ -474,6 +624,12 @@ def _tower_cuda(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) 
         )
     if layered and chain not in (None, CHAIN):
         raise ValueError(f"the layer kernel (F {f}) sums a layer as one chain; got chain {chain}")
+    se = "se_w1" in packed
+    if se and (f not in SE_WIDTH or packed["se_w1"].shape[1] != SE_WIDTH[f] or chain not in (None, CHAIN)):
+        raise ValueError(
+            f"the squeeze-and-excitation tower runs on the card at packed widths {tuple(SE_WIDTH)} only "
+            f"(filters 65-256), at the squeeze {SE_WIDTH} the kernel is built for, with the shipped chain; "
+            f"got packed width F {f}, squeeze {packed['se_w1'].shape[1]} (chain {chain})")
     dev = x2d.device
     depth0 = -(-9 * cin // 16) * 16
     if layered:
@@ -486,6 +642,10 @@ def _tower_cuda(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) 
     _check(packed["conv1_b"], "conv1_b", _BF16, (f,), dev)
     _check(packed["res_img"], "res_img", _BF16, img_shapes[1], dev)
     _check(packed["res_b"], "res_b", _BF16, (n_layers, f), dev)
+    if se:
+        sp = packed["se_w1"].shape[1]
+        for name, shape in (("se_w1", (sp, f)), ("se_b1", (sp,)), ("se_w2", (2 * f, sp)), ("se_b2", (2 * f,))):
+            _check(packed[name], name, _BF16, (n_layers // 2, *shape), dev)
     out = torch.empty((rows, f), dtype=_BF16, device=dev)
     lib = _library()
     layer_launches = 0
@@ -499,13 +659,16 @@ def _tower_cuda(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) 
                 packed["res_img"].data_ptr(), packed["res_b"].data_ptr(), out.data_ptr(),
                 rows // AREA, cin, f, n_layers,
             )
-            if chain is None:
+            if se:
+                err = lib.c4_tower_forward_se(
+                    *args[:5], *(packed[k].data_ptr() for k in ("se_w1", "se_b1", "se_w2", "se_b2")), *args[5:], stream)
+            elif chain is None:
                 err = lib.c4_tower_forward(*args, stream)
             else:
                 err = lib.c4_tower_forward_chain(*args, CHAINS.index(chain), stream)
             if err != 0:
                 raise RuntimeError(f"tower kernel launch failed with cudaError {err} (F {f}, chain {chain})")
-    launches.count(_record, f, rows // AREA, layer_launches)
+    launches.count(_record, f, rows // AREA, layer_launches, n_layers // 2 if se else 0)
     return out
 
 
@@ -542,7 +705,9 @@ def run_tower(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) ->
     ``CHAINS``) overrides the shipped chain length of the fused kernel, for
     measurements. ``run_tower.launches`` counts tower forwards on the card,
     ``run_tower.layer_launches`` the layer kernel's launches among them,
-    ``run_tower.by_shape`` the forwards as ``{packed width: {boards: n}}``."""
+    ``run_tower.se_blocks`` the squeeze-and-excitation gates they ran (one a
+    residual block), ``run_tower.by_shape`` the forwards as ``{packed
+    width: {boards: n}}``."""
     if x2d.device.type == "cuda":
         return _tower_cuda(packed, x2d, chain)
     if x2d.device.type == "cpu":
@@ -552,14 +717,17 @@ def run_tower(packed: Dict[str, torch.Tensor], x2d: torch.Tensor, chain=None) ->
 
 run_tower.launches = 0
 run_tower.layer_launches = 0
+run_tower.se_blocks = 0
 run_tower.by_shape = {}
 
-def _record(f: int, boards: int, layer_launches: int) -> None:
+def _record(f: int, boards: int, layer_launches: int, se_blocks: int = 0) -> None:
     """Count one tower forward on the card at packed width ``f``, with the
-    layer kernel's launches in it (through ``launches.count``, so a
-    forward captured into a CUDA graph counts at each replay)."""
+    layer kernel's launches and the gates in it (through
+    ``launches.count``, so a forward captured into a CUDA graph counts at
+    each replay)."""
     run_tower.launches += 1
     run_tower.layer_launches += layer_launches
+    run_tower.se_blocks += se_blocks
     per = run_tower.by_shape.setdefault(f, {})
     per[boards] = per.get(boards, 0) + 1
 

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from connect4_tpu_torch.config import ModelConfig, NetConfig
+from connect4_tpu_torch.config import ModelConfig, net_config_from_dict
 from connect4_tpu_torch.training.learner import TrainState, init_train_state
 from connect4_tpu_torch.utils import DeviceLike, resolve_device
 
@@ -76,7 +76,7 @@ def restore_checkpoint(
     if int(payload["gen"]) != int(gen):
         raise ValueError(f"checkpoint under generation {gen} says generation {payload['gen']}")
     if state is None:
-        config = ModelConfig(net_config=NetConfig(**payload["net_config"]))
+        config = ModelConfig(net_config=net_config_from_dict(payload["net_config"]))
         state = init_train_state(config, torch.Generator().manual_seed(0), device)
     before = (
         copy.deepcopy(state.net.state_dict()),

@@ -9,7 +9,10 @@ It runs the cell's own driver (``c4bench/kinds/<kind>.py``, as
 program, the counters reset where the driver's profiled segment starts and
 read where it stops, and the segment's events read by
 ``connect4_tpu_torch.scripts._common.span_times``. It prints the span
-table, the evaluations by class, what the spans give the cell (a self-play
+table, the evaluations by class, the hand kernels' launch counters over the
+segment (``LAUNCH_COUNTERS``: the tower's forwards and its squeeze-and-
+excitation gates, the learner's fused BatchNorm pair and its gate calls, each
+counted at every replay of a graph), what the spans give the cell (a self-play
 iteration's phases and the eager work a wave, a training step's parts and
 how long the card waited on the learner's host; the card's busy time that
 the spans hold), whether the run's outputs passed the cell's limits, and
@@ -30,6 +33,21 @@ sys.path.insert(0, ROOT)
 
 # the spans whose card time is a wave's eager work
 EAGER = ("search.init", "search.finish", "selfplay.record_refill", "selfplay.compact")
+# the launch counters read over the segment: (printed name, module, function, attribute)
+LAUNCH_COUNTERS = (
+    ("run_tower.launches", "connect4_tpu_torch.models.tower", "run_tower", "launches"),
+    ("run_tower.se_blocks", "connect4_tpu_torch.models.tower", "run_tower", "se_blocks"),
+    ("batch_norm_act.launches", "connect4_tpu_torch.models.batch_norm", "batch_norm_act", "launches"),
+    ("batch_norm_act.backward_launches", "connect4_tpu_torch.models.batch_norm", "batch_norm_act",
+     "backward_launches"),
+    ("se_gate.launches", "connect4_tpu_torch.models.se_gate", "se_gate", "launches"),
+    ("se_gate.backward_launches", "connect4_tpu_torch.models.se_gate", "se_gate", "backward_launches"),
+)
+
+
+def launch_counts() -> dict:
+    """The values of ``LAUNCH_COUNTERS`` now."""
+    return {name: getattr(getattr(importlib.import_module(mod), fn), attr) for name, mod, fn, attr in LAUNCH_COUNTERS}
 
 
 def chrome_events(events):
@@ -119,9 +137,11 @@ def main(argv=None) -> dict:
         def start(self):
             super().start()
             launches.reset_counters()
+            caught["counts"] = launch_counts()
 
         def stop(self):
             events = super().stop()
+            caught["counts"] = {k: v - caught["counts"][k] for k, v in launch_counts().items()}
             caught["evals"] = launches.counters().get("evals")
             caught["events"] = events
             return events
@@ -136,8 +156,9 @@ def main(argv=None) -> dict:
     times = _common.span_times(events, (lo, hi))
     print("\n".join(_common.span_table(times)))
     print(f"evaluations by class: {caught['evals']}")
+    print(f"launch counters over the segment: {caught['counts']}")
     result.update(correct=correct, e2e=out["e2e"], figures=figures(traffic["kind"], seg, times, caught["evals"]),
-                  spans=times, evals=caught["evals"], idle_gaps=seg["idle_gaps"],
+                  spans=times, evals=caught["evals"], launch_counts=caught["counts"], idle_gaps=seg["idle_gaps"],
                   window_s=seg["window_s"], busy_s=seg["busy_s"])
     for k, v in result["figures"].items():
         print(f"{k}: {v}")

@@ -43,9 +43,9 @@ def _checked(unchecked):
     """``unchecked`` (``batch_norm_act_unchecked``) behind
     ``batch_norm_act``'s checks of its arguments."""
 
-    def run(x, bn, skip=None, stream=False):
+    def run(x, bn, skip=None, stream=False, **kwargs):
         B._check(x, skip, bn.weight, bn.bias, bn.running_mean, bn.running_var)
-        return unchecked(x, bn, skip, stream)
+        return unchecked(x, bn, skip, stream, **kwargs)
 
     return run
 

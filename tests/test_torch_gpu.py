@@ -703,9 +703,9 @@ def test_train_step_runs_fused_batch_norm_nhwc_on_card(monkeypatch):
 
     unchecked = B.batch_norm_act_unchecked
 
-    def checked(x, bn, skip=None, stream=False):
+    def checked(x, bn, skip=None, stream=False, **kwargs):
         B._check(x, skip, bn.weight, bn.bias, bn.running_mean, bn.running_var)
-        return unchecked(x, bn, skip, stream)
+        return unchecked(x, bn, skip, stream, **kwargs)
 
     monkeypatch.setattr(B, "batch_norm_act_unchecked", checked)
     from connect4_tpu_torch.training.learner import init_train_state, make_train_step
